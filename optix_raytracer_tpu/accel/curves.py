@@ -3,8 +3,8 @@
 The reference exposes built-in curve GAS types — linear / quadratic / cubic
 B-spline, Catmull-Rom, Bézier, ribbons (`optixCurves.cpp:380-412`,
 `optixBuiltinISModuleGet`, device getters `optix_device.h:610-699`). The
-TPU-native design evaluates the splines up front (vectorized basis-matrix
-products, MXU-friendly) and tessellates each strand into round capsule
+design here evaluates the splines up front (vectorized basis-matrix
+products) and tessellates each strand into round capsule
 segments (or flat parallelogram ribbons), which the analytic prim table
 intersects — trading the driver's specialized swept-curve intersectors for
 more, simpler primitives that vectorize perfectly.

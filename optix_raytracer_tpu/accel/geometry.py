@@ -1,4 +1,4 @@
-"""Device triangle geometry + the MXU-friendly intersection precompute.
+"""Device triangle geometry + the matmul-form intersection precompute.
 
 Role of `optixAccelBuild`'s triangle build input (`include/optix_types.h:632-799`)
 and the driver's triangle intersector: a mesh becomes a `TriangleGeometry` pytree
@@ -6,24 +6,26 @@ holding both raw triangle data and a precomputed **unit-triangle (Woop-style)
 affine transform per triangle**, packed so that transforming a whole wavefront of
 rays into every triangle's local frame is two matmuls:
 
-    O' = O @ W + C        # [N, 3] @ [3, 3M] + [3M]  → MXU
-    D' = D @ W            # [N, 3] @ [3, 3M]         → MXU
+    O' = O @ W + C        # [N, 3] @ [3, 3M] + [3M]
+    D' = D @ W            # [N, 3] @ [3, 3M]
 
 In triangle t's local frame a point is v0 + u*e1 + v*e2 + w*n, so the hit test
 collapses to elementwise math on (u, v, w) lanes: t = -O'w/D'w, u = O'u + t*D'u,
-v = O'v + t*D'v, hit iff u>=0, v>=0, u+v<=1, t in (tmin, tmax). This is the
-TPU-first re-design of the ray/triangle hot path: the FLOPs ride the systolic
-array instead of a scalar intersector per ray.
+v = O'v + t*D'v, hit iff u>=0, v>=0, u+v<=1, t in (tmin, tmax). The XLA
+brute-force intersector evaluates this as two matmuls over the wavefront;
+the fused GPU kernel (accel/pallas_bf.py) reads the same per-triangle
+constants (`tri_consts`) as scalars.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import pytree
 
 from ..core.vecmath import cross, normalize
 
 
-@struct.dataclass
+@pytree.dataclass
 class TriangleGeometry:
     """A GAS over triangles (one geometry's worth; instances reference these).
 
@@ -40,7 +42,7 @@ class TriangleGeometry:
     w_mat: jnp.ndarray         # [3, 3M] packed world→unit-triangle linear maps
     w_off: jnp.ndarray         # [3M] packed translations
     valid: jnp.ndarray         # [M] bool — False for degenerate/padding triangles
-    tri_consts: jnp.ndarray    # [M, 16] per-triangle kernel constants (SMEM):
+    tri_consts: jnp.ndarray    # [M, 16] per-triangle kernel constants:
     #   [0:9]  m_inv rows (u row, v row, w row), zeroed for invalid tris
     #   [9:12] -m_inv @ v0 offsets
     #   [12:15] unit face normal, [15] pad
@@ -49,7 +51,7 @@ class TriangleGeometry:
     tangent: jnp.ndarray        # [M, 3] uv-aligned tangent (normal mapping)
     uv_density: jnp.ndarray     # [M] sqrt(uv area / world area) — ray-cone
     #   footprint → texel footprint conversion for mip selection
-    smooth: bool = struct.field(pytree_node=False, default=False)
+    smooth: bool = pytree.field(pytree_node=False, default=False)
     #   True when real per-vertex normals were provided (corner_normal
     #   carries shading normals, not replicated face normals) — the engine
     #   interpolates them at hits only when this is set
@@ -108,7 +110,8 @@ def build_triangle_geometry(vertices, indices, normals=None,
     # Pack for the two-matmul form: O'[n, 3t+j] = sum_k O[n, k] * m_inv[t, j, k]
     # → W[k, 3t+j] = m_inv[t, j, k]; C[3t+j] = -m_inv[t, j, :] @ v0[t].
     M = indices.shape[0]
-    offsets = -jnp.einsum("tjk,tk->tj", m_inv, v0)            # [M, 3]
+    offsets = -jnp.einsum("tjk,tk->tj", m_inv, v0,
+                          precision=jax.lax.Precision.HIGHEST)   # [M, 3]
     w_mat = jnp.transpose(m_inv, (2, 0, 1)).reshape(3, 3 * M)
     w_off = offsets.reshape(3 * M)
 
@@ -153,11 +156,7 @@ def build_triangle_geometry(vertices, indices, normals=None,
 def shade_plane(geom: TriangleGeometry) -> jnp.ndarray:
     """Per-triangle shading attributes packed into ONE [M, 128] plane, so a
     wavefront's shading_frame costs a single row gather instead of
-    eight — XLA's TPU gather is priced per descriptor, so per-hit
-    attribute fetches at 2M lanes dropped ~120 ms → ~30 ms. Rows are
-    padded to the full 128-lane width: [N, 128] row gathers are XLA's
-    fast path (measured 30 ms vs 87 ms for [N, 32] at 2M rows — the
-    padding costs memory, not time).
+    eight. Rows are padded to 128 columns.
 
     Columns: v0(0:3) e1(3:6) e2(6:9) face_normal(9:12)
     corner_normal(12:21) corner_uv(21:27) tangent(27:30)
@@ -194,9 +193,8 @@ def shading_frame(geom: TriangleGeometry, prim_id, uv, plane=None):
     w = 1.0 - u - v
     pos = v0 + u[..., None] * e1 + v[..., None] * e2
 
-    # Straight column-slice interpolation — no [N, 3, 3] reshapes: the
-    # relayout of gathered rows into nested minor dims costs more than the
-    # gather itself on TPU.
+    # Straight column-slice interpolation — no [N, 3, 3] reshapes of the
+    # gathered rows.
     sn = (w[..., None] * row[..., 12:15] + u[..., None] * row[..., 15:18]
           + v[..., None] * row[..., 18:21])
     # Degenerate interpolation (zero-filled corner normals for meshes that

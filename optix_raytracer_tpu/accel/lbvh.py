@@ -7,7 +7,7 @@ pointers. Every stage is a fixed-depth data-parallel jnp program, so the
 build runs on device under jit — including per-frame rebuilds for dynamic
 geometry (`SDK/optixDynamicGeometry/optixDynamicGeometry.cpp:439-460`).
 
-The threaded layout is the TPU-friendly traversal structure: a ray carries a
+The threaded layout is a wavefront-friendly traversal structure: a ray carries a
 single int32 node pointer; "descend" = ptr+1, "skip subtree" = escape index.
 No stacks, no divergence — just vectorized pointer updates
 (accel/traverse.py). Compaction (`optixAccelCompact`) is a no-op: the arrays
@@ -19,7 +19,7 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import pytree
 
 from .geometry import TriangleGeometry
 from .morton import morton3d
@@ -27,7 +27,7 @@ from .morton import morton3d
 _MAX_DEPTH_SWEEPS = 64  # ≥ max radix-tree depth for n ≤ 2^32 leaves
 
 
-@struct.dataclass
+@pytree.dataclass
 class LBVH:
     """Threaded BVH over one TriangleGeometry, in DFS order.
 

@@ -12,7 +12,7 @@ The reference builds two micromap flavors (`optixOpacityMicromapArrayBuild`,
 - **Displaced micromeshes** subdivide base triangles 4^level ways and push
   micro-vertices along interpolated directions by a displacement amount
   (`optixDisplacedMicromesh` sample). Here: a build-time tessellator that
-  emits a plain (bigger) triangle mesh — on TPU more uniform triangles are
+  emits a plain (bigger) triangle mesh — more uniform triangles are
   exactly what the dense intersectors want.
 """
 from __future__ import annotations

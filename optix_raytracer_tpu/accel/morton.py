@@ -1,7 +1,7 @@
 """Morton (Z-order) codes for LBVH construction — all vectorized jnp.
 
 The reference's `optixAccelBuild` hides BVH construction in the driver
-(`include/optix_host.h:562`); the TPU-native rebuild constructs an LBVH from
+(`include/optix_host.h:562`); this rebuild constructs an LBVH from
 Morton-sorted primitive centroids (Karras-style), so the build itself is a
 data-parallel program that runs on device (SURVEY.md §7 hard part #1).
 """

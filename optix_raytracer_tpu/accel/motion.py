@@ -20,7 +20,7 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import pytree
 
 from ..core.rays import Hits, Rays
 from ..core.vecmath import cross, dot, normalize
@@ -28,7 +28,7 @@ from ..core.vecmath import cross, dot, normalize
 _EPS = 1e-12
 
 
-@struct.dataclass
+@pytree.dataclass
 class MotionTriangles:
     """Triangle mesh with two vertex keyframes (t = 0 and t = 1)."""
     v0_0: jnp.ndarray  # [M, 3] key 0
@@ -139,7 +139,7 @@ def intersect_motion_spheres(centers0, centers1, radii, rays: Rays, times):
 
 # --- SRT motion transforms (OptixSRTMotionTransform) ---
 
-@struct.dataclass
+@pytree.dataclass
 class SRTKey:
     """One SRT key: scale [3], quaternion [4] (x,y,z,w), translation [3]."""
     scale: jnp.ndarray

@@ -131,20 +131,6 @@ def build_bvh_sah(geom, num_threads: Optional[int] = None) \
                 node_prim=jnp.asarray(node_prim))
 
 
-def sah_leaf_order(geom) -> Optional[np.ndarray]:
-    """Triangle ids in SAH-tree DFS leaf order, or None without the native
-    builder. Consecutive leaves of a binned-SAH tree are spatially tighter
-    than raw morton runs, so chunking them into 128-triangle clusters
-    (accel/clusters.py) culls measurably better (~25% fewer clusters per
-    ray block on the knot benchmark) — the quality-build payoff of
-    `optixAccelBuild`'s PREFER_FAST_TRACE (`include/optix_host.h:562`)."""
-    bvh = build_bvh_sah(geom)
-    if bvh is None:
-        return None
-    prim = np.asarray(bvh.node_prim)
-    return prim[prim >= 0].astype(np.int32)
-
-
 def sah_cost(bvh) -> float:
     """Relative SAH cost of a threaded BVH (lower = better tree)."""
     lib = _load()

@@ -1,21 +1,22 @@
-"""Fused Pallas intersection kernels — the TPU "traversal core" hot path.
+"""Fused brute-force intersection kernels for the GPU (Pallas, Triton route).
 
-The pure-XLA brute-force intersector (accel/bruteforce.py) materializes
-[N, 3M] intermediates in HBM, which makes the path tracer memory-bound
-(~14 Mrays/s measured at 1080p). These kernels keep the whole ray×triangle
-test in VMEM/registers:
+The XLA brute-force intersector (accel/bruteforce.py) writes [N, 3M] ray
+transforms and [N, M] t/u/v/hit planes to device memory and reads them
+back for the argmin: about 1 KB per ray on the 32-triangle Cornell box.
+These kernels keep the whole ray × triangle test in registers:
 
-- rays stream through VMEM as [8, 128]-blocks of SoA components (1024
-  rays per grid step),
-- per-triangle constants (the unit-triangle transform of accel/geometry.py,
-  plus face normal) sit in SMEM and are broadcast scalar-by-scalar,
-- the closest-hit reduction is a running min carried in registers across a
-  `fori_loop` over triangles, emitting hit t/u/v/prim/material/normal directly
-  — so the shading stage needs no gathers at all.
+- one program owns a power-of-two block of rays in SoA layout (one ray per
+  thread at the default 128 rays and 4 warps);
+- a loop over the triangles reads each triangle's 15 constants (the
+  unit-triangle transform of accel/geometry.py plus the face normal) as
+  scalar loads, which L1 serves to the whole block as broadcasts;
+- the closest hit is a running minimum in registers that emits t, prim,
+  material, uv and normal directly, so shading needs no gathers.
 
-HBM traffic: 32 B/ray in, 36 B/ray out — ~100× less than the XLA path.
-This is the `optixTrace` equivalent (`include/optix_device.h:61`) for
-small-to-medium GAS sizes; the LBVH path handles large scenes.
+Device-memory traffic is 32 B in and 36 B out per ray. A block whose rays
+all have empty windows (tmax <= tmin: dead paths, masked shadow rays) skips
+the triangle loop, and the any-hit loop stops once every ray of the block
+is resolved.
 """
 from __future__ import annotations
 
@@ -24,57 +25,45 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu_triton
 
 from ..core.rays import Rays
 
-LANES = 128
-# 32 sublanes (4096 rays/block) measured fastest on v5e: 1024→305, 2048→506,
-# 4096→645, 8192→624 Mrays/s on the Cornell bench — bigger blocks amortize
-# the per-triangle scalar loads across more vector work until VMEM pressure
-# turns over.
-SUBLANES = 32
-BLOCK_RAYS = SUBLANES * LANES           # rays per grid step
-MAX_SMEM_TRIS = 512                     # tri_consts: 512×16×4 B = 32 KB SMEM
+BLOCK_RAYS = 128        # rays per program (power of two)
+NUM_WARPS = 4
+NUM_STAGES = 1
 
 _DEGEN_EPS = 1e-12
 
 
-def _load_tri(tri_ref, t):
-    """Read one triangle's 15 constants from SMEM as python-tuple scalars."""
-    return tuple(tri_ref[t, k] for k in range(15))
+def _tri_test(tri_ref, t, ox, oy, oz, dx, dy, dz):
+    """Unit-triangle-space hit candidate of triangle `t` for a ray block.
 
-
-def _tri_test(consts, ox, oy, oz, dx, dy, dz):
-    """Unit-triangle-space hit candidate for one triangle vs a ray block.
-
-    Returns (tt, uu, vv, dpz): the candidate distance, barycentrics and the
-    local w-direction component (|dpz| < eps ⇒ parallel/degenerate → masked
-    by the caller).
+    Returns (tt, uu, vv, ok_geom): candidate distance, barycentrics, and
+    the inside-and-not-parallel predicate (the caller adds the t window).
     """
-    (w00, w01, w02, w10, w11, w12, w20, w21, w22,
-     c0, c1, c2, _nx, _ny, _nz) = consts
-    opx = ox * w00 + oy * w01 + oz * w02 + c0
-    opy = ox * w10 + oy * w11 + oz * w12 + c1
-    opz = ox * w20 + oy * w21 + oz * w22 + c2
-    dpx = dx * w00 + dy * w01 + dz * w02
-    dpy = dx * w10 + dy * w11 + dz * w12
-    dpz = dx * w20 + dy * w21 + dz * w22
-    inv = 1.0 / dpz
-    tt = -opz * inv
+    w = [tri_ref[t, k] for k in range(12)]
+    opx = ox * w[0] + oy * w[1] + oz * w[2] + w[9]
+    opy = ox * w[3] + oy * w[4] + oz * w[5] + w[10]
+    opz = ox * w[6] + oy * w[7] + oz * w[8] + w[11]
+    dpx = dx * w[0] + dy * w[1] + dz * w[2]
+    dpy = dx * w[3] + dy * w[4] + dz * w[5]
+    dpz = dx * w[6] + dy * w[7] + dz * w[8]
+    tt = -opz / dpz
     uu = opx + tt * dpx
     vv = opy + tt * dpy
-    return tt, uu, vv, dpz
+    ok = ((jnp.abs(dpz) > _DEGEN_EPS)
+          & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0))
+    return tt, uu, vv, ok
 
 
 def _closest_kernel(tri_ref, mat_ref, ox_ref, oy_ref, oz_ref,
                     dx_ref, dy_ref, dz_ref, tmin_ref, tmax_ref,
                     t_out, id_out, mid_out, u_out, v_out,
-                    nx_out, ny_out, nz_out):
+                    nx_out, ny_out, nz_out, *, num_tris):
     ox, oy, oz = ox_ref[...], oy_ref[...], oz_ref[...]
     dx, dy, dz = dx_ref[...], dy_ref[...], dz_ref[...]
     tmin, tmax = tmin_ref[...], tmax_ref[...]
-    num_tris = tri_ref.shape[0]
 
     zeros = jnp.zeros_like(ox)
     neg1 = jnp.full(ox.shape, -1, jnp.int32)
@@ -82,23 +71,20 @@ def _closest_kernel(tri_ref, mat_ref, ox_ref, oy_ref, oz_ref,
 
     def body(t, carry):
         bt, bid, bmid, bu, bv, bnx, bny, bnz = carry
-        consts = _load_tri(tri_ref, t)
-        tt, uu, vv, dpz = _tri_test(consts, ox, oy, oz, dx, dy, dz)
-        ok = ((jnp.abs(dpz) > _DEGEN_EPS)
-              & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
-              & (tt > tmin) & (tt < bt))      # running min ⇒ closest hit
-        bt = jnp.where(ok, tt, bt)
-        bid = jnp.where(ok, t, bid)
-        bmid = jnp.where(ok, mat_ref[t, 0], bmid)
-        bu = jnp.where(ok, uu, bu)
-        bv = jnp.where(ok, vv, bv)
-        bnx = jnp.where(ok, consts[12], bnx)
-        bny = jnp.where(ok, consts[13], bny)
-        bnz = jnp.where(ok, consts[14], bnz)
-        return bt, bid, bmid, bu, bv, bnx, bny, bnz
+        tt, uu, vv, ok = _tri_test(tri_ref, t, ox, oy, oz, dx, dy, dz)
+        ok = ok & (tt > tmin) & (tt < bt)      # running min => closest hit
+        return (jnp.where(ok, tt, bt),
+                jnp.where(ok, t, bid),
+                jnp.where(ok, mat_ref[t], bmid),
+                jnp.where(ok, uu, bu),
+                jnp.where(ok, vv, bv),
+                jnp.where(ok, tri_ref[t, 12], bnx),
+                jnp.where(ok, tri_ref[t, 13], bny),
+                jnp.where(ok, tri_ref[t, 14], bnz))
 
+    live = jnp.max((tmax > tmin).astype(jnp.int32))
     bt, bid, bmid, bu, bv, bnx, bny, bnz = jax.lax.fori_loop(
-        0, num_tris, body, init)
+        0, live * num_tris, body, init)
     t_out[...] = bt
     id_out[...] = bid
     mid_out[...] = bmid
@@ -110,101 +96,87 @@ def _closest_kernel(tri_ref, mat_ref, ox_ref, oy_ref, oz_ref,
 
 
 def _anyhit_kernel(tri_ref, ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref,
-                   tmin_ref, tmax_ref, occ_out):
+                   tmin_ref, tmax_ref, occ_out, *, num_tris):
     ox, oy, oz = ox_ref[...], oy_ref[...], oz_ref[...]
     dx, dy, dz = dx_ref[...], dy_ref[...], dz_ref[...]
     tmin, tmax = tmin_ref[...], tmax_ref[...]
-    num_tris = tri_ref.shape[0]
+    # Rays with an empty window are resolved (unoccluded) from the start.
+    empty = (tmax <= tmin).astype(jnp.int32)
 
-    # The carry is int32, not bool: Mosaic cannot thread an i1 vector through
-    # scf.for (layout mismatch between the packed init and the loop body).
-    def body(t, occ):
-        consts = _load_tri(tri_ref, t)
-        tt, uu, vv, dpz = _tri_test(consts, ox, oy, oz, dx, dy, dz)
-        ok = ((jnp.abs(dpz) > _DEGEN_EPS)
-              & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
-              & (tt > tmin) & (tt < tmax))
-        return jnp.maximum(occ, ok.astype(jnp.int32))
+    def cond(carry):
+        t, occ = carry
+        return (t < num_tris) & (jnp.min(jnp.maximum(occ, empty)) == 0)
 
-    occ = jax.lax.fori_loop(0, num_tris, body,
-                            jnp.zeros(ox.shape, jnp.int32))
+    def body(carry):
+        t, occ = carry
+        tt, _, _, ok = _tri_test(tri_ref, t, ox, oy, oz, dx, dy, dz)
+        ok = ok & (tt > tmin) & (tt < tmax)
+        return t + 1, jnp.maximum(occ, ok.astype(jnp.int32))
+
+    _, occ = jax.lax.while_loop(
+        cond, body, (jnp.int32(0), jnp.zeros(ox.shape, jnp.int32)))
     occ_out[...] = occ
 
 
-def _pad_reshape(a, n_padded, fill=0.0):
-    pad = n_padded - a.shape[0]
-    if pad:
-        a = jnp.concatenate(
-            [a, jnp.full((pad,) + a.shape[1:], fill, a.dtype)], axis=0)
-    return a.reshape(n_padded // LANES, LANES)
-
-
-def _ray_blocks(rays: Rays, n_padded):
+def _ray_columns(rays: Rays, n_padded):
+    """SoA ray columns padded to n_padded. Padding rays get tmin = tmax = 0:
+    their (tmin, tmax) window is empty, so they never record a hit."""
     o, d = rays.origin, rays.direction
-    comps = [o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
-             rays.tmin, rays.tmax]
-    # Padding lanes get tmin=0, tmax=0 → the (tt>tmin)&(tt<tmax/bt) window is
-    # empty, so they can never record a hit.
-    return [_pad_reshape(c, n_padded) for c in comps]
+    cols = [o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
+            rays.tmin, rays.tmax]
+    pad = n_padded - rays.tmin.shape[0]
+    return [jnp.pad(c.astype(jnp.float32), (0, pad)) for c in cols]
 
 
-def _block_specs(n):
-    return [pl.BlockSpec((SUBLANES, LANES), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM) for _ in range(n)]
+def _launch(kernel, n_tris, tables, rays, outs, block_rays, num_warps,
+            interpret):
+    n = rays.tmin.shape[0]
+    n_padded = -(-n // block_rays) * block_rays
+    ray_spec = pl.BlockSpec((block_rays,), lambda i: (i,))
+    table_specs = [pl.BlockSpec(tb.shape, lambda i, nd=tb.ndim: (0,) * nd)
+                   for tb in tables]
+    res = pl.pallas_call(
+        functools.partial(kernel, num_tris=n_tris),
+        grid=(n_padded // block_rays,),
+        in_specs=table_specs + [ray_spec] * 8,
+        out_specs=[ray_spec] * len(outs),
+        out_shape=[jax.ShapeDtypeStruct((n_padded,), dt) for dt in outs],
+        backend="triton",
+        compiler_params=plgpu_triton.CompilerParams(
+            num_warps=num_warps, num_stages=NUM_STAGES),
+        interpret=interpret,
+        name=kernel.__name__.strip("_"),
+    )(*tables, *_ray_columns(rays, n_padded))
+    return [r[:n] for r in res]
 
 
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def closest_hit(tri_consts, tri_mat, rays: Rays, interpret: bool = False):
+@functools.partial(jax.jit, static_argnames=("block_rays", "num_warps",
+                                             "interpret"))
+def closest_hit(tri_consts, tri_mat, rays: Rays, block_rays: int = BLOCK_RAYS,
+                num_warps: int = NUM_WARPS, interpret: bool = False):
     """Closest-hit query via the fused kernel.
 
     tri_consts: [M, 16] f32 (geometry.tri_consts); tri_mat: [M] i32.
-    rays: flat [N]. Returns dict(t, prim_id, mat_id, u, v, normal) with
-    miss ⇒ prim_id/mat_id = -1, t = tmax.
+    rays: flat [N]. Returns dict(t, prim_id, mat_id, uv, normal) with
+    miss => prim_id = mat_id = -1, t = tmax, uv = normal = 0.
     """
-    n = rays.tmin.shape[0]
-    n_padded = -(-n // BLOCK_RAYS) * BLOCK_RAYS
-    grid = (n_padded // BLOCK_RAYS,)
-    blocks = _ray_blocks(rays, n_padded)
-    blk_shape = (n_padded // LANES, LANES)
-
-    out_shapes = ([jax.ShapeDtypeStruct(blk_shape, jnp.float32)]
-                  + [jax.ShapeDtypeStruct(blk_shape, jnp.int32)] * 2
-                  + [jax.ShapeDtypeStruct(blk_shape, jnp.float32)] * 5)
-
-    outs = pl.pallas_call(
-        _closest_kernel,
-        grid=grid,
-        in_specs=([pl.BlockSpec(memory_space=pltpu.SMEM),
-                   pl.BlockSpec(memory_space=pltpu.SMEM)]
-                  + _block_specs(8)),
-        out_specs=tuple(_block_specs(8)),
-        out_shape=tuple(out_shapes),
-        interpret=interpret,
-    )(tri_consts, tri_mat.reshape(-1, 1).astype(jnp.int32), *blocks)
-
-    t, pid, mid, u, v, nx, ny, nz = [o.reshape(n_padded)[:n] for o in outs]
+    f32, i32 = jnp.float32, jnp.int32
+    t, pid, mid, u, v, nx, ny, nz = _launch(
+        _closest_kernel, tri_consts.shape[0],
+        [tri_consts.astype(f32), tri_mat.astype(i32)], rays,
+        [f32, i32, i32, f32, f32, f32, f32, f32], block_rays, num_warps,
+        interpret)
     return dict(t=t, prim_id=pid, mat_id=mid,
                 uv=jnp.stack([u, v], axis=-1),
                 normal=jnp.stack([nx, ny, nz], axis=-1))
 
 
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def any_hit(tri_consts, rays: Rays, interpret: bool = False):
-    """Occlusion query via the fused kernel → bool [N]."""
-    n = rays.tmin.shape[0]
-    n_padded = -(-n // BLOCK_RAYS) * BLOCK_RAYS
-    grid = (n_padded // BLOCK_RAYS,)
-    blocks = _ray_blocks(rays, n_padded)
-    blk_shape = (n_padded // LANES, LANES)
-
-    occ = pl.pallas_call(
-        _anyhit_kernel,
-        grid=grid,
-        in_specs=([pl.BlockSpec(memory_space=pltpu.SMEM)] + _block_specs(8)),
-        out_specs=pl.BlockSpec((SUBLANES, LANES), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct(blk_shape, jnp.int32),
-        interpret=interpret,
-    )(tri_consts, *blocks)
-
-    return occ.reshape(n_padded)[:n] != 0
+@functools.partial(jax.jit, static_argnames=("block_rays", "num_warps",
+                                             "interpret"))
+def any_hit(tri_consts, rays: Rays, block_rays: int = BLOCK_RAYS,
+            num_warps: int = NUM_WARPS, interpret: bool = False):
+    """Occlusion query via the fused kernel -> bool [N]."""
+    (occ,) = _launch(_anyhit_kernel, tri_consts.shape[0],
+                     [tri_consts.astype(jnp.float32)], rays, [jnp.int32],
+                     block_rays, num_warps, interpret)
+    return occ != 0

@@ -5,7 +5,7 @@ AABB build inputs + `__intersection__*` device programs of the Whitted sample
 (`SDK/cuda/geometry.cu:38-143` parallelogram & sphere-shell,
 `SDK/cuda/sphere.cu:37` sphere, wired in `SDK/optixWhitted/optixWhitted.cpp:
 381-430`) and the built-in sphere primitive (`optixSphere`,
-`include/optix_host.h:409` optixBuiltinISModuleGet). On TPU each primitive
+`include/optix_host.h:409` optixBuiltinISModuleGet). Here each primitive
 type is a vectorized analytic solve over the whole wavefront; a scene's
 custom prims live in one SoA table and are tested brute-force (they number
 in the tens in every reference scene).
@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import pytree
 
 from ..core.rays import Hits, Rays
 from ..core.vecmath import cross, dot, normalize
@@ -32,7 +32,7 @@ _SWEPT_COARSE = 16  # coarse curve-parameter scan points (phi is degree 6
 _SWEPT_NEWTON = 6   # minimization refinement steps
 
 
-@struct.dataclass
+@pytree.dataclass
 class CustomPrims:
     """SoA table of analytic primitives.
 
@@ -56,11 +56,6 @@ class CustomPrims:
     kind: jnp.ndarray     # [P] int32
     params: jnp.ndarray   # [P, 18] f32
     mat_id: jnp.ndarray   # [P] int32
-    # Static mirror of `kind` (python ints): lets the fused megakernel emit
-    # per-prim code for exactly the kinds present (scene structure, like
-    # triangle count) — part of the pytree treedef, so scenes with
-    # different prim kinds compile separately.
-    kinds_static: tuple = struct.field(pytree_node=False, default=())
 
     @property
     def num(self):
@@ -113,8 +108,7 @@ def make_prims(prims) -> CustomPrims:
             params[i, 16:18] = pr.get("u_range", (0.0, 1.0))
         else:
             raise ValueError(f"unknown prim kind {pr['kind']}")
-    return CustomPrims(kinds_static=tuple(int(k) for k in kind),
-                       kind=jnp.asarray(kind), params=jnp.asarray(params),
+    return CustomPrims(kind=jnp.asarray(kind), params=jnp.asarray(params),
                        mat_id=jnp.asarray(mat))
 
 

@@ -5,7 +5,7 @@ transform + instanceId + sbtOffset, `include/optix_types.h:970-1010`) built
 into an IAS (`Scene.cpp:1134-1213` buildInstanceAccel), traversed with the
 device transform stack (`optix_device.h:728-868`).
 
-TPU-native form: an instance table of affine transforms; traversal loops the
+Here: an instance table of affine transforms; traversal loops the
 (static, usually small) instance list, transforms the wavefront into each
 instance's object space, intersects the shared GAS once, and keeps the
 per-ray minimum — the "transform stack" is a pair of affine maps applied to
@@ -17,8 +17,9 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import pytree
 
 from ..core import transforms as xf
 from ..core.rays import Hits, Rays
@@ -26,7 +27,7 @@ from . import bruteforce as bf
 from .geometry import TriangleGeometry
 
 
-@struct.dataclass
+@pytree.dataclass
 class InstanceTable:
     """SoA instance array over one shared (concatenated) GAS.
 
@@ -42,8 +43,8 @@ class InstanceTable:
     inv_transform: jnp.ndarray  # [I, 3, 4] world→object
     sbt_offset: jnp.ndarray     # [I] int32
     instance_id: jnp.ndarray    # [I] int32 (user-visible id)
-    prim_ranges: tuple = struct.field(pytree_node=False, default=())
-    row_ids: bool = struct.field(pytree_node=False, default=True)
+    prim_ranges: tuple = pytree.field(pytree_node=False, default=())
+    row_ids: bool = pytree.field(pytree_node=False, default=True)
     #   True when instance_id == row index (the default construction):
     #   lets shading look up per-hit instance transforms by inst_id
 
@@ -109,18 +110,14 @@ def slice_geometry(geom: TriangleGeometry, lo: int, hi: int):
 def intersect_instances(geom: TriangleGeometry, instances: InstanceTable,
                         rays: Rays, tri_mat=None,
                         chunk_size: Optional[int] = None,
-                        mesh_clusters=None) -> Hits:
+                        impl: str = "auto") -> Hits:
     """Closest hit through the two-level structure (flat rays [N]).
 
     The instance loop is a static python loop — instance counts in the
     reference scenes are small (each iteration is one fused GAS query over
     the whole wavefront). Reported t stays in world units because object-
     space direction keeps its (possibly non-unit) scaled length.
-
-    mesh_clusters: optional {(lo, hi): ClusterSet} — per-mesh cluster
-    tables (object space); instances whose range has one traverse through
-    the cluster-culled Pallas kernels instead of brute force, so LARGE
-    shared meshes stay fast under instancing.
+    impl: the brute-force implementation (bruteforce.choose_impl).
     """
     n = rays.tmin.shape[0]
     best = Hits.none((n,), tmax=1e16)
@@ -134,21 +131,18 @@ def intersect_instances(geom: TriangleGeometry, instances: InstanceTable,
         d = xf.apply_vector(jnp.broadcast_to(inv, (n, 3, 4)), rays.direction)
         obj_rays = Rays(origin=o, direction=d, tmin=rays.tmin,
                         tmax=best.t)          # current-best culls later work
-        if mesh_clusters is not None and (lo, hi) in mesh_clusters:
-            from . import clusters as cluster_mod
-            h = cluster_mod.closest_hit(mesh_clusters[(lo, hi)], obj_rays)
-        else:
-            sub = slice_geometry(geom, lo, hi)
-            sub_mat = None if tri_mat is None else tri_mat[lo:hi]
-            h = bf.intersect_closest(sub, obj_rays, tri_mat=sub_mat,
-                                     chunk_size=chunk_size)
+        sub = slice_geometry(geom, lo, hi)
+        sub_mat = None if tri_mat is None else tri_mat[lo:hi]
+        h = bf.intersect_closest(sub, obj_rays, tri_mat=sub_mat,
+                                 chunk_size=chunk_size, impl=impl)
         h = h.replace(prim_id=jnp.where(h.valid, h.prim_id + lo, -1))
         closer = h.valid & (h.t < best.t)
         # Normal back to world: w_row = n_row @ L^-1 (the inverse-transpose
         # rule in row form) — inv_transform already holds L^-1, so this is
         # one matmul with NO per-ray matrix inverses (jnp.linalg.inv on a
         # broadcast [N,3,3] LU-decomposes per ray and OOMs at 2M rays).
-        n_world = h.normal @ inv[:, :3]
+        n_world = jnp.matmul(h.normal, inv[:, :3],
+                             precision=jax.lax.Precision.HIGHEST)
         n_world = n_world / jnp.maximum(
             jnp.linalg.norm(n_world, axis=-1, keepdims=True), 1e-12)
         best = Hits(
@@ -170,7 +164,7 @@ def intersect_instances(geom: TriangleGeometry, instances: InstanceTable,
 def intersect_instances_any(geom: TriangleGeometry,
                             instances: InstanceTable, rays: Rays,
                             chunk_size: Optional[int] = None,
-                            mesh_clusters=None):
+                            impl: str = "auto"):
     """Occlusion query through the two-level structure → bool [N]
     (terminate-on-first-hit semantics per instance)."""
     n = rays.tmin.shape[0]
@@ -181,16 +175,11 @@ def intersect_instances_any(geom: TriangleGeometry,
         inv = instances.inv_transform[i]
         o = xf.apply_point(jnp.broadcast_to(inv, (n, 3, 4)), rays.origin)
         d = xf.apply_vector(jnp.broadcast_to(inv, (n, 3, 4)), rays.direction)
-        # already-occluded lanes get an empty window: the cluster path's
-        # dead-lane culling then skips their blocks entirely
+        # already-occluded lanes get an empty window, so the brute-force
+        # kernel skips blocks made only of them
         obj_rays = Rays(origin=o, direction=d, tmin=rays.tmin,
                         tmax=jnp.where(occ, 0.0, rays.tmax))
-        if mesh_clusters is not None and (lo, hi) in mesh_clusters:
-            from . import clusters as cluster_mod
-            occ = occ | cluster_mod.any_hit(mesh_clusters[(lo, hi)],
-                                            obj_rays)
-        else:
-            sub = slice_geometry(geom, lo, hi)
-            occ = occ | bf.intersect_any(sub, obj_rays,
-                                         chunk_size=chunk_size)
+        sub = slice_geometry(geom, lo, hi)
+        occ = occ | bf.intersect_any(sub, obj_rays, chunk_size=chunk_size,
+                                     impl=impl)
     return occ

@@ -1,6 +1,6 @@
 """Stackless threaded-BVH traversal: one int32 of state per ray.
 
-The TPU replacement for the driver's RT-core traversal behind `optixTrace`
+The software replacement for the driver's RT-core traversal behind `optixTrace`
 (`include/optix_device.h:61`): every ray carries a single DFS node pointer;
 the whole wavefront steps in lock-step through a `lax.while_loop` —
 "hit the node's AABB and it's internal" → ptr+1 (descend), otherwise → the
@@ -8,9 +8,9 @@ node's escape index (skip the subtree). Leaves run the unit-triangle hit test
 inline and shrink the ray's tmax, which prunes later subtrees. No stacks, no
 per-ray divergence, no recursion (SURVEY.md §7 layer 2).
 
-This is the portable (pure-jnp, gather-based) traversal used for large
-meshes; the brute-force Pallas kernel remains the fast path for SMEM-sized
-meshes.
+This is the portable (pure-jnp, gather-based) traversal used for meshes
+past the brute-force limit (bruteforce.BRUTE_FORCE_MAX_TRIS); smaller
+meshes take the brute-force intersector.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from .geometry import TriangleGeometry
 from .lbvh import LBVH
 
 _DEGEN_EPS = 1e-12
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _woop_test(geom: TriangleGeometry, prim, o, d):
@@ -36,8 +37,8 @@ def _woop_test(geom: TriangleGeometry, prim, o, d):
     c = geom.tri_consts[prim]                 # [N, 16]
     m = c[:, 0:9].reshape(-1, 3, 3)
     off = c[:, 9:12]
-    op = jnp.einsum("njk,nk->nj", m, o) + off
-    dp = jnp.einsum("njk,nk->nj", m, d)
+    op = jnp.einsum("njk,nk->nj", m, o, precision=_HIGHEST) + off
+    dp = jnp.einsum("njk,nk->nj", m, d, precision=_HIGHEST)
     dz = dp[:, 2]
     safe = jnp.where(jnp.abs(dz) < _DEGEN_EPS, _DEGEN_EPS, dz)
     t = -op[:, 2] / safe

@@ -3,8 +3,8 @@
 The optixVolumeViewer capability (`SDK/optixVolumeViewer/`): a fog volume as
 a custom primitive over a density grid (`volume.cu:284` __intersection__
 volume, transmittance estimation in the closest-hit `volume.cu:310`,
-NanoVDB-backed). TPU-native re-design: the sparse VDB tree becomes a dense
-[D³] grid (HBM is plentiful; dense sampling vectorizes), the per-ray DDA
+NanoVDB-backed). Re-design: the sparse VDB tree becomes a dense
+[D³] grid (device memory is plentiful; dense sampling vectorizes), the per-ray DDA
 becomes fixed-step marching in a `lax.fori_loop` — every lane samples the
 grid by trilinear gather per step — and light transmittance comes from a
 precomputed directional shadow grid (a cumulative optical-depth sweep, one
@@ -16,13 +16,13 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import pytree
 
 from ..core.rays import Rays
 from ..core.aabb import intersect_ray
 
 
-@struct.dataclass
+@pytree.dataclass
 class DensityGrid:
     """Dense density volume in a world AABB."""
     density: jnp.ndarray    # [D, D, D] f32 (z, y, x order)

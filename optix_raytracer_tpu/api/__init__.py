@@ -2,7 +2,7 @@
 
 Python classes named and shaped after the reference's host API
 (`include/optix_host.h`) so reference-style applications port 1:1, mapped to
-their TPU-native meanings:
+their meanings in this framework:
 
 | OptiX                                  | here                              |
 |----------------------------------------|-----------------------------------|

@@ -19,11 +19,10 @@ from typing import Optional
 
 import jax.numpy as jnp
 
+from ..accel.bruteforce import BRUTE_FORCE_MAX_TRIS
 from ..accel.geometry import TriangleGeometry, build_triangle_geometry
 from ..accel.lbvh import LBVH, build_lbvh
 from ..accel.primitives import CustomPrims, make_prims
-
-BVH_THRESHOLD_TRIS = 512
 
 
 @dataclasses.dataclass
@@ -58,7 +57,7 @@ def build_gas(vertices, indices, normals=None, uvs=None,
     geom = build_triangle_geometry(vertices, indices, normals=normals,
                                    uvs=uvs)
     if with_bvh is None:
-        with_bvh = geom.num_triangles > BVH_THRESHOLD_TRIS
+        with_bvh = geom.num_triangles > BRUTE_FORCE_MAX_TRIS
     return TraversableHandle(
         geom=geom, bvh=build_lbvh(geom) if with_bvh else None)
 

@@ -5,8 +5,8 @@ dispatches them by SBT index at run time (`optixCallablePrograms.cu:123,138`,
 group setup `optixCallablePrograms.cpp:434-444`). Under XLA the exact same
 shape is `jax.lax.switch` over a static function table: the "SBT callable
 index" is a traced int32, every callable is traced once, and dispatch is
-branchless per lane — which is also why this is *free* on TPU while it costs
-a divergent indirect call on the reference's hardware.
+branchless per lane: every lane evaluates the selected branch's program
+where the reference pays a divergent indirect call.
 """
 from __future__ import annotations
 

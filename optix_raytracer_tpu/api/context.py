@@ -3,9 +3,10 @@
 The `optixDeviceContextCreate` surface (`include/optix_host.h:98-228`):
 - the severity-tagged log callback (`optix_host.h:118-134`) becomes a Python
   callback fed by the framework's logger;
-- the compiled-module **disk cache** with `OPTIX_CACHE_PATH` /
-  `OPTIX_CACHE_MAXSIZE` env overrides (`optix_host.h:136-228`) maps onto the
-  XLA persistent compilation cache (same role: skip recompiles across runs);
+- the compiled-module **disk cache** with its `OPTIX_CACHE_PATH` env
+  override (`optix_host.h:136-228`) maps onto the XLA persistent
+  compilation cache and `JAX_COMPILATION_CACHE_DIR` (same role: skip
+  recompiles across runs; core/compile_cache.py);
 - validation mode (`OPTIX_DEVICE_CONTEXT_VALIDATION_MODE_ALL`, used in the
   reference's debug builds, `optixPathTracer.cpp:566-569`) enables
   jax_debug_nans + NaN/range checks in launches.
@@ -18,6 +19,8 @@ from typing import Callable, Optional
 
 import jax
 
+from ..core.compile_cache import compile_cache_dir
+
 
 class LogLevel:
     """Severity levels of the OptiX log callback (optix_host.h:118-134)."""
@@ -29,9 +32,6 @@ class LogLevel:
 
 
 class DeviceContext:
-    _CACHE_PATH_ENV = "ORT_CACHE_PATH"       # OPTIX_CACHE_PATH analogue
-    _CACHE_ENABLED_ENV = "ORT_CACHE_OFF"
-
     def __init__(self, log_callback: Optional[Callable] = None,
                  log_level: int = LogLevel.WARNING,
                  validation_mode: bool = False,
@@ -41,11 +41,8 @@ class DeviceContext:
         self._log_cb = log_callback
         self._log_level = log_level
         self.validation_mode = validation_mode
-        self._cache_enabled = (cache_enabled
-                               and not os.environ.get(self._CACHE_ENABLED_ENV))
-        self._cache_location = (cache_location
-                                or os.environ.get(self._CACHE_PATH_ENV)
-                                or os.path.expanduser("~/.cache/ort_xla"))
+        self._cache_enabled = cache_enabled
+        self._cache_location = cache_location or compile_cache_dir()
         if self._cache_enabled:
             try:
                 os.makedirs(self._cache_location, exist_ok=True)
@@ -76,7 +73,7 @@ class DeviceContext:
             "platform": dev.platform,
             "device_kind": getattr(dev, "device_kind", "unknown"),
             "num_devices": len(jax.devices()),
-            "rtcore_version": 0,            # no fixed-function RT core on TPU
+            "rtcore_version": 0,            # traversal runs in software
             "limit_max_trace_depth": 31,
             "limit_max_instance_id": 1 << 28,
         }

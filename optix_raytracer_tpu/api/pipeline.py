@@ -2,7 +2,7 @@
 
 The reference's launch ritual (`optixProgramGroupCreate` →
 `optixPipelineCreate` → SBT record packing → `optixLaunch`,
-`include/optix_host.h:440-528`) with TPU-native meanings:
+`include/optix_host.h:440-528`) with these meanings:
 
 - A ProgramGroup binds entry points from a Module (RG/MS/CH/AH/EX/callables,
   kinds at `optix_types.h:2072-2094`).
@@ -124,9 +124,7 @@ class Pipeline:
             prims=handle.prims if handle.prims is not None
             else CustomPrims.empty(),
             miss_color=sbt.miss_color(), textures=textures,
-            with_bvh=False)
-        if handle.bvh is not None:
-            scene = scene.replace(bvh=handle.bvh)
+            bvh=handle.bvh)
         return scene
 
     def launch(self, sbt: ShaderBindingTable, handle: TraversableHandle,

@@ -5,7 +5,7 @@ launch param is baked into the module with
 `OptixModuleCompileBoundValueEntry` (`optixBoundValues.cpp:742-750`), so the
 device NEE loop compiles with a constant bound instead of reading params.
 
-The TPU mapping (`api/module.py` Module.bound_values): a *runtime* launch
+The mapping here (`api/module.py` Module.bound_values): a *runtime* launch
 param is a traced device scalar — the NEE loop is a `lax.fori_loop` whose
 bound XLA cannot unroll; a *bound* value is a Python constant baked at trace
 time — the loop unrolls and the light-sample chain schedules statically.

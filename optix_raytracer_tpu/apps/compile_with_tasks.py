@@ -5,7 +5,7 @@ splits one module's compile into tasks executed by a thread pool
 (`lib/CompileWithTasks.h:53-117` ThreadPool/OptixTaskExecutePool), and the
 sample reports the wall-clock win over serial compilation.
 
-TPU mapping (`api/module.py` compile_with_tasks): XLA's C++ compile
+Mapping (`api/module.py` compile_with_tasks): XLA's C++ compile
 releases the GIL, so AOT `jit(...).lower().compile()` jobs genuinely
 overlap on a ThreadPoolExecutor. The jobs here are the whitted pipeline's
 raygen at several film sizes — distinct static shapes, so each is a real

@@ -7,7 +7,7 @@ build input plus its own `__intersection__is` sphere intersector
 and shades the world-space normal `n * 0.5 + 0.5`
 (`optixCustomPrimitive.cu:127-135`).
 
-The TPU-native "custom IS program" is exactly what it is in the reference:
+The "custom IS program" here is exactly what it is in the reference:
 user code. `user_intersection` below lives in the APP, not the framework —
 it is traced into the jitted render like any IS program group is compiled
 into the pipeline. The framework contribution is the AABB slab pre-test

@@ -51,12 +51,12 @@ def cutout_cornell():
 
 
 def cutout_grid(nx=40, ny=30):
-    """A cluster-eligible cutout scene: an nx x ny grid of quads in the
-    y=300 plane, each quad exactly one checker cell (scale 1 with
+    """A cutout scene past the brute-force limit: an nx x ny grid of quads
+    in the y=300 plane, each quad exactly one checker cell (scale 1 with
     per-quad-offset uvs, so every triangle is CERTAIN opaque or
     transparent), over a solid floor. Exercises the opacity-micromap
-    integration on the cluster-tier traversal (the reference applies
-    micromaps to any GAS, `optixOpacityMicromap.cpp:29-30`)."""
+    integration on the BVH traversal (the reference applies micromaps to
+    any GAS, `optixOpacityMicromap.cpp:29-30`)."""
     verts, idx, uvs, tri_mat = [], [], [], []
     sx, sz = 500.0 / nx, 500.0 / ny
     for j in range(ny):

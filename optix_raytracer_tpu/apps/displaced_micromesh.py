@@ -49,8 +49,7 @@ def render(width=512, height=512, level=4, samples=4):
     scene = make_device_scene(
         verts, idx, np.zeros(len(idx), np.int32),
         [{"kind": mat.DIFFUSE, "base_color": (0.55, 0.5, 0.45)}],
-        lights=lights, miss_color=(0.2, 0.25, 0.38),
-        with_bvh=len(idx) > 512)
+        lights=lights, miss_color=(0.2, 0.25, 0.38))
     cam = Camera(eye=(1.8, 1.4, 2.2), lookat=(0, 0, 0), fov_y=40,
                  aspect=width / height).params()
     film = film_mod.Film.create(height, width)

@@ -4,7 +4,7 @@ writing a solid-color framebuffer.
 Reference: `SDK/optixHello/optixHello.cpp` + `draw_solid_color.cu:39`
 (`__raygen__draw_solid_color`: `params.image[idx] = color`). Here the whole
 context→module→pipeline→SBT→launch ritual collapses to one jitted function —
-which is the point: on TPU the "pipeline" is an XLA executable and the "launch"
+which is the point: here the "pipeline" is an XLA executable and the "launch"
 is calling it.
 """
 from __future__ import annotations

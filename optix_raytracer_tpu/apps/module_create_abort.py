@@ -6,7 +6,8 @@ with the compile options serialized to its CLI (`:786-835`); the parent
 keeps rendering with the OLD pipeline and either hot-swaps when the child
 finishes or kills it mid-compile (`:446,586-599`).
 
-TPU mapping (`api/module.py` AbortableCompile): the child process runs the
+Mapping (`api/module.py` AbortableCompile): the child process (on the CPU
+backend, so it never opens the card the parent holds) runs the
 AOT `jit(...).lower().compile()`; `.poll()/.wait()/.abort()` mirror the
 reference's process control. The render loop below keeps producing frames
 with the current pipeline the whole time — the hot-swap flow.

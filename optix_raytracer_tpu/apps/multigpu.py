@@ -51,7 +51,8 @@ def render(width=512, height=512, samples=8, n_rows=None, n_samples=1,
 def render_multihost(width, height, samples, sample_shards=1, max_depth=3):
     """Multi-host path: jax.distributed bring-up + one slice per process
     over the (slice, rows, samples) mesh — render-time collectives stay
-    on ICI; DCN only moves final pixels (multichip/multislice.py)."""
+    inside each host; the host network only moves final pixels
+    (multichip/multislice.py)."""
     from ..multichip import distributed as dist
     from ..multichip import multislice as ms
     info = dist.initialize()

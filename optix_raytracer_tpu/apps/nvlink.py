@@ -6,10 +6,10 @@ per island on the least-loaded member and samples it over the link
 (`loadTexture`, `:1524-1569`), choosing strategy from the topology
 (`--peers none|nvlink|all`, `:759-772`).
 
-TPU mapping (`multichip/memory.py`): the island is the ICI domain (a slice);
-the policy picks replicate / one-replica-per-island / global sharding from
-the stack size vs a per-chip budget, and XLA's GSPMD inserts the ICI gathers
-that the reference's P2P sampler does by hand. This app builds a textured
+Mapping (`multichip/memory.py`): the island is one host's devices (a
+slice); the policy picks replicate / one-replica-per-island / global
+sharding from the stack size vs a per-device budget, and XLA's GSPMD inserts
+the cross-device gathers that the reference's P2P sampler does by hand. This app builds a textured
 scene, reports the plan and the measured per-chip HBM bytes (replicated vs
 placed), renders through the engine with the placed textures, and checks
 the image matches the replicated render bit-exactly.
@@ -103,7 +103,7 @@ def main(argv=None):
     scene = textured_scene(tex_px=args.tex_size)
     nbytes = memory.texture_nbytes(scene)
     budget = (int(args.budget_mb * (1 << 20)) if args.budget_mb is not None
-              else memory.DEFAULT_TEXTURE_BUDGET)
+              else memory.default_texture_budget())
     placed, report = memory.place_scene_textures(scene, mesh,
                                                  budget_bytes=budget)
     per_chip = memory.per_chip_texture_bytes(placed)

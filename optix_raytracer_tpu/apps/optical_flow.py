@@ -6,7 +6,7 @@ vectors from frame N to frame N+1 out, written as a 3-channel float EXR
 with the flow in the first two channels and the third left zero (the
 reference does exactly this because its ImageBuffer has no 2-channel
 format, `optixOpticalFlow.cpp:205-209`). The flow model itself is the
-coarse-to-fine block matcher in denoise/flow.py — the TPU-native stand-in
+coarse-to-fine block matcher in denoise/flow.py — the stand-in
 for the driver's flow network (`optix_denoiser_opticalflow.h`).
 """
 from __future__ import annotations

@@ -6,7 +6,7 @@ frame 2^n, FOV, aperture, tone factor), per-frame re-upload of launch params
 + `optixLaunch`, PBO blit, and save-to-PNG on Space
 (`tracer_window.cpp:64-183`, `camera.h:17-172`, `main.cpp:41-303`).
 
-TPU hosts are headless-first, so the default mode renders N progressive
+Accelerator hosts are usually headless, so the default mode renders N progressive
 frames and writes the image + a stage-time report (the displayStats overlay).
 With a display and matplotlib, `--interactive` opens a live window:
   WASDQE move · arrow keys orbit · +/- samples-per-frame · [ ] FOV ·
@@ -356,7 +356,7 @@ tick();
 
 class ViewerServer:
     """HTTP live view: the GLDisplay-blit role (`sutil/GLDisplay.cpp:93-122`)
-    re-expressed for headless TPU hosts — the render loop stays in the main
+    re-expressed for headless hosts — the render loop stays in the main
     thread next to the device; a browser anywhere on the network polls
     /frame.png and posts /key, so the 'window' needs no GL, no X, and no
     display on the host at all."""

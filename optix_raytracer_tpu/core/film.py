@@ -16,10 +16,10 @@ from typing import Optional
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from . import pytree
 
 
-@struct.dataclass
+@pytree.dataclass
 class Film:
     """Progressive-render state: accum buffer + subframe counter.
 
@@ -123,7 +123,7 @@ class OutputBuffer:
     """Host-facing framebuffer wrapper (the `CUDAOutputBuffer<uchar4>` analogue,
     `sutil/CUDAOutputBuffer.h:45-94`).
 
-    On TPU there is one transport: device array → host numpy on `get_host()`.
+    Here there is one transport: device array → host numpy on `get_host()`.
     `map()/unmap()` are kept as no-op context points so ported sample code reads
     the same.
     """

@@ -11,10 +11,10 @@ so the same structs serve a single ray, a [H, W] camera grid, or a compacted
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from . import pytree
 
 
-@struct.dataclass
+@pytree.dataclass
 class Rays:
     """A batch of rays. origin/direction: [..., 3]; tmin/tmax: [...]."""
     origin: jnp.ndarray
@@ -43,7 +43,7 @@ class Rays:
         return self.origin + t[..., None] * self.direction
 
 
-@struct.dataclass
+@pytree.dataclass
 class Hits:
     """Closest-hit records for a batch of rays.
 
@@ -54,8 +54,8 @@ class Hits:
     `include/optix_device.h:1206`); normal: [..., 3] unit geometric normal.
 
     mat_id and normal are produced directly by the intersector (the fused
-    Pallas kernel selects them during its running-min) so shading needs no
-    per-hit gathers — the TPU replacement for reading attributes out of SBT
+    brute-force kernel selects them during its running-min) so shading
+    needs no per-hit gathers — the replacement for reading attributes out of SBT
     record pointers (`include/optix_device.h:1239` optixGetSbtDataPointer).
     """
     t: jnp.ndarray

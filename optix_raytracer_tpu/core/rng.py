@@ -2,7 +2,7 @@
 
 The reference seeds a per-pixel LCG with a TEA hash of (pixel index, subframe)
 and draws with `rnd()` (`SDK/cuda/random.h:32-71`). That scheme is already the
-right shape for TPU — a pure function of integer state, no shared tables — so we
+right shape for a wavefront — a pure function of integer state, no shared tables — so we
 keep its structure (TEA seed + LCG advance) and add a stronger PCG-hash float
 path. All ops are elementwise uint32 arithmetic over arbitrary batch shapes:
 one call produces random numbers for an entire ray wavefront, and results are
@@ -32,7 +32,7 @@ def pcg(state):
 
     LCG state advance + a lowbias32-style finalizer. All shifts are by
     constants (unlike classic PCG's data-dependent shift) so the identical
-    sequence is reproducible inside Pallas TPU kernels, where per-lane
+    sequence is reproducible inside Pallas kernels, where per-lane
     variable shifts are not guaranteed to lower.
     """
     state = jnp.asarray(state).astype(_U32)

@@ -8,8 +8,11 @@ batch axes so a whole instance table transforms in one fused op.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def identity(batch_shape=()):
@@ -55,31 +58,35 @@ def rotate(axis, angle):
 
 def compose(a, b):
     """Transform composition: apply b first, then a. Both [..., 3, 4]."""
-    rot = jnp.einsum("...ij,...jk->...ik", a[..., :3], b[..., :3])
-    trans = jnp.einsum("...ij,...j->...i", a[..., :3], b[..., 3]) + a[..., 3]
+    rot = jnp.einsum("...ij,...jk->...ik", a[..., :3], b[..., :3],
+                     precision=_HIGHEST)
+    trans = jnp.einsum("...ij,...j->...i", a[..., :3], b[..., 3],
+                       precision=_HIGHEST) + a[..., 3]
     return from_rotation_translation(rot, trans)
 
 
 def apply_point(m, p):
     """m: [..., 3, 4], p: [..., 3] → rotated + translated point."""
-    return jnp.einsum("...ij,...j->...i", m[..., :3], p) + m[..., 3]
+    return jnp.einsum("...ij,...j->...i", m[..., :3], p,
+                      precision=_HIGHEST) + m[..., 3]
 
 
 def apply_vector(m, v):
     """Rotation/scale only (directions, no translation)."""
-    return jnp.einsum("...ij,...j->...i", m[..., :3], v)
+    return jnp.einsum("...ij,...j->...i", m[..., :3], v, precision=_HIGHEST)
 
 
 def apply_normal(m, n):
     """Transform a normal by the inverse-transpose of the linear part."""
     inv = jnp.linalg.inv(m[..., :3])
-    return jnp.einsum("...ji,...j->...i", inv, n)
+    return jnp.einsum("...ji,...j->...i", inv, n, precision=_HIGHEST)
 
 
 def inverse(m):
     """Inverse of an affine [..., 3, 4] transform."""
     rinv = jnp.linalg.inv(m[..., :3])
-    tinv = -jnp.einsum("...ij,...j->...i", rinv, m[..., 3])
+    tinv = -jnp.einsum("...ij,...j->...i", rinv, m[..., 3],
+                       precision=_HIGHEST)
     return from_rotation_translation(rinv, tinv)
 
 

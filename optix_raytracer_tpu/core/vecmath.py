@@ -1,7 +1,7 @@
 """Vector math over [..., 3] arrays (the `sutil/vec_math.h` equivalent).
 
 The reference ships a 2.6 kLoC header of float2/3/4 operator overloads
-(`SDK/sutil/vec_math.h`) used by every host and device file. On TPU the idiomatic
+(`SDK/sutil/vec_math.h`) used by every host and device file. In JAX the idiomatic
 representation is structure-of-arrays: a "float3" is any jnp array whose last axis
 has size 3, and every helper below broadcasts over arbitrary leading batch axes so
 the same code path serves one ray or a [H, W]-tile of rays.

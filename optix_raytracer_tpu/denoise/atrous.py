@@ -8,7 +8,7 @@ pretrained CNN (whose weights we cannot ship), this is an SVGF-style
 edge-avoiding à-trous filter: hierarchical 5×5 B3-spline passes with
 bilateral weights on luminance/normal/albedo, plus albedo demodulation so
 texture detail survives. Pure jnp stencil ops (edge-replicated shifts) →
-fuses into a handful of VPU passes on TPU. Temporal mode warps the previous output by a
+fuses into a handful of elementwise passes. Temporal mode warps the previous output by a
 flow field and blends (the OPTIX_DENOISER_MODEL_KIND_TEMPORAL role).
 """
 from __future__ import annotations

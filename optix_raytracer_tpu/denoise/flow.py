@@ -6,7 +6,7 @@ frame B, in pixels, suitable as the temporal denoiser's flow guide layer.
 Implementation: an image pyramid (2× average pooling) with exhaustive ±R
 integer search per level on luminance SSD, refined level by level — entirely
 dense tensor ops (every candidate displacement is a shifted-difference
-reduction), which is the TPU-friendly formulation of block matching.
+reduction), which is the data-parallel formulation of block matching.
 """
 from __future__ import annotations
 

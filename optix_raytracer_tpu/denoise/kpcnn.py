@@ -2,7 +2,7 @@
 
 The reference's denoiser is a pretrained neural net invoked through
 `optixDenoiserCreate/Setup/Invoke` (`include/optix_host.h:829-1028`,
-model kinds `optix_types.h:1609-1635`). This is the TPU-native equivalent:
+model kinds `optix_types.h:1609-1635`). This is the equivalent here:
 a small encoder/decoder CNN that consumes the same guide layers the
 reference does (noisy beauty + albedo + normal) and predicts a per-pixel
 5x5 filter kernel applied to the albedo-demodulated irradiance
@@ -12,7 +12,7 @@ tools/train_denoiser.py on renders from THIS framework's path tracer
 (random Cornell-variant scenes, low-spp input vs high-spp target) and
 shipped as an npz checkpoint.
 
-Everything is NHWC lax.conv — XLA maps these onto the MXU; the whole
+Everything is NHWC lax.conv — XLA hands these to cuDNN on a GPU; the whole
 network is a single fused jit program at inference.
 """
 from __future__ import annotations

@@ -3,15 +3,22 @@
 Replaces the reference's image paths: `sutil::saveImage`/`loadImage` (PPM/PNG/EXR
 via stb + tinyexr, `SDK/sutil/sutil.h:99-100`, `sutil.cpp`), `PPMLoader`
 (`sutil/PPMLoader.{h,cpp}`), and the `optixConsole` luminance-mapped ASCII dump
-(`SDK/optixConsole/optixConsole.cpp:697-760`). PNG goes through PIL; HDR
+(`SDK/optixConsole/optixConsole.cpp:697-760`). PNG is a stdlib-zlib codec
+(8-bit, non-interlaced: what the framework writes and what most tools
+emit); HDR
 float layers (denoiser AOVs, beauty) use the from-scratch EXR codec in
 io/exr.py (the tinyexr role) — .npz remains as a fallback container.
 """
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 
 import numpy as np
+
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}     # color type -> samples/pixel
 
 
 def save_image(path: str, pixels: np.ndarray) -> None:
@@ -39,8 +46,7 @@ def save_image(path: str, pixels: np.ndarray) -> None:
     if ext == ".ppm":
         _save_ppm(path, pixels[..., :3])
         return
-    from PIL import Image
-    Image.fromarray(pixels).save(path)
+    _save_png(path, pixels)
 
 
 def load_image(path: str) -> np.ndarray:
@@ -54,8 +60,88 @@ def load_image(path: str) -> np.ndarray:
         return read_exr(path)
     if ext == ".ppm":
         return _load_ppm(path)
-    from PIL import Image
-    return np.asarray(Image.open(path))
+    return _load_png(path)
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def _save_png(path: str, pixels: np.ndarray) -> None:
+    """8-bit grey/RGB/RGBA PNG, filter type 0 on every row."""
+    img = np.ascontiguousarray(pixels, dtype=np.uint8)
+    if img.ndim == 2:
+        img = img[..., None]
+    h, w, c = img.shape
+    color_type = {1: 0, 2: 4, 3: 2, 4: 6}[c]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           img.reshape(h, w * c)], axis=1)
+    with open(path, "wb") as f:
+        f.write(_PNG_SIG)
+        f.write(_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
+                                                color_type, 0, 0, 0)))
+        f.write(_png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+        f.write(_png_chunk(b"IEND", b""))
+
+
+def _load_png(path: str) -> np.ndarray:
+    """Decode an 8-bit non-interlaced grey/RGB/grey-alpha/RGBA PNG."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _PNG_SIG:
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, header = 8, [], None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{path}: PNG has no IHDR chunk")
+    w, h, depth, color_type, _, _, interlace = header
+    if depth != 8 or interlace or color_type not in _PNG_CHANNELS:
+        raise ValueError(f"{path}: only 8-bit non-interlaced grey/RGB(A) "
+                         f"PNG is supported (depth={depth}, "
+                         f"color_type={color_type}, interlace={interlace})")
+    c = _PNG_CHANNELS[color_type]
+    stride = w * c
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    raw = raw.reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int32)
+    for y in range(h):
+        ftype, line = raw[y, 0], raw[y, 1:].astype(np.int32)
+        if ftype > 4:
+            raise ValueError(f"{path}: row {y} has PNG filter type {ftype}")
+        if ftype == 0:
+            cur = line
+        elif ftype == 2:
+            cur = (line + prev) & 0xFF
+        else:          # Sub, Average and Paeth depend on the left pixel
+            cur = np.zeros(stride, np.int32)
+            for x in range(stride):
+                a = cur[x - c] if x >= c else 0
+                b = prev[x]
+                if ftype == 1:
+                    p = a
+                elif ftype == 3:
+                    p = (a + b) >> 1
+                else:
+                    cc = prev[x - c] if x >= c else 0
+                    pa, pb, pc = abs(b - cc), abs(a - cc), abs(a + b - 2 * cc)
+                    p = a if pa <= pb and pa <= pc else (b if pb <= pc
+                                                         else cc)
+                cur[x] = (line[x] + p) & 0xFF
+        out[y] = cur
+        prev = cur
+    img = out.reshape(h, w, c)
+    return img[..., 0] if c == 1 else img
 
 
 def _save_ppm(path: str, rgb: np.ndarray) -> None:

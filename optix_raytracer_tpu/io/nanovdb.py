@@ -5,9 +5,8 @@ The reference's volume viewer loads real NanoVDB fog-volume grids
 (ABI version 29: `optixVolumeViewer/nanovdb/NanoVDB.h:100`). This module
 reads (and writes) that format directly with numpy — no OpenVDB
 dependency — and densifies the sparse tree into the engine's
-`accel.volume.DensityGrid` dense array (TPU-native choice: HBM is
-plentiful, dense trilinear sampling vectorizes; the tree's role as a
-traversal structure has no value on a vector machine).
+`accel.volume.DensityGrid` dense array (device memory is plentiful and
+dense trilinear sampling vectorizes; a sparse grid is ROADMAP R6).
 
 File layout (`nanovdb/util/IO.h:100-165`): one or more segments, each
   Header   {magic u64 "NanoVDB0", version u32, gridCount u16, codec u16}
@@ -381,7 +380,7 @@ def read_nvdb(path: str, grid_name: str | None = None) -> NvdbGrid:
 def load_density_grid(path: str, grid_name: str | None = None,
                       max_voxels: int = 192 ** 3):
     """Read a .nvdb fog volume into the engine's `DensityGrid`, mean-pool
-    downsampling when the dense grid would bust the VMEM-friendly budget."""
+    downsampling when the dense grid would pass `max_voxels`."""
     import jax.numpy as jnp
     from ..accel.volume import DensityGrid
 

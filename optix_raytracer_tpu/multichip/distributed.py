@@ -1,8 +1,8 @@
 """Multi-host process-group bring-up: `jax.distributed` made turnkey.
 
 The reference has no multi-node story (single process; NVLink P2P only,
-`optixNVLink.cpp:1617-1712`). The TPU-pod equivalent is JAX's distributed
-runtime: one process per host, a coordinator address, and a global device
+`optixNVLink.cpp:1617-1712`). The multi-host equivalent is JAX's
+distributed runtime: one process per host, a coordinator address, and a global device
 view after `jax.distributed.initialize`. This module wraps the bring-up so
 apps and the multislice renderer (multichip/multislice.py) can go
 multi-host with one call:
@@ -14,9 +14,9 @@ multi-host with one call:
 Environment autodetection (in priority order):
 - explicit kwargs
 - JAX-standard vars (JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES,
-  JAX_PROCESS_ID) and the common launcher vars (MEGASCALE_*, SLURM_*).
-- Cloud-TPU metadata is handled by jax.distributed itself when
-  everything is left unset.
+  JAX_PROCESS_ID) and the common launcher vars (SLURM_*, OMPI_COMM_WORLD_*).
+- cluster metadata that jax.distributed detects itself when everything
+  is left unset.
 
 Single-process (no coordinator configured anywhere) is an explicit no-op:
 local == global devices, process_id 0 — the same code path runs unchanged
@@ -63,8 +63,7 @@ def detect_config(coordinator_address=None, num_processes=None,
     """Resolve (coordinator, num_processes, process_id) from args + env.
     Returns (None, 1, 0) when nothing is configured (single process)."""
     coordinator = coordinator_address or _env(
-        "JAX_COORDINATOR_ADDRESS", "MEGASCALE_COORDINATOR_ADDRESS",
-        "COORDINATOR_ADDRESS")
+        "JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS")
     nproc = num_processes if num_processes is not None else _env(
         "JAX_NUM_PROCESSES", "SLURM_NTASKS", "OMPI_COMM_WORLD_SIZE")
     pid = process_id if process_id is not None else _env(
@@ -126,7 +125,7 @@ def shutdown():
 def pod_mesh(rows_per_slice: Optional[int] = None,
              samples_per_slice: int = 1, devices=None):
     """(slice, rows, samples) mesh with one slice PER PROCESS (host), so
-    the multislice invariant — no render-time collective crosses DCN —
+    the multislice invariant — no render-time collective crosses hosts —
     holds by construction: each process's local chips form its slice.
 
     rows_per_slice defaults to local_chips // samples_per_slice."""

@@ -3,19 +3,21 @@
 The reference discovers P2P islands over NVLink, keeps ONE texture copy per
 island placed on the least-loaded member, and lets peers sample it over the
 link (`SDK/optixNVLink/optixNVLink.cpp:1524-1569` loadTexture,
-`:1698-1712` computeP2PIslands). On TPU the island topology is the mesh
-itself: chips inside a slice share ICI (the NVLink role); the slice axis is
-the DCN boundary (the no-P2P boundary). The policy here is the same
-decision, expressed as shardings:
+`:1698-1712` computeP2PIslands). Here the island topology is the mesh
+itself: the devices of one slice (one host) share the fast device-to-device
+link (the NVLink role); the slice axis is the host-network boundary (the
+no-P2P boundary). The policy here is the same decision, expressed as
+shardings:
 
 - small stacks  → REPLICATE: every chip keeps a local copy (the island-of-
   one case — fastest sampling, N× memory).
 - big stacks    → SHARD_ISLAND: one replica per slice, spread across the
-  slice's chips (`P(None, ("rows","samples"), ...)`); sampling rides ICI
-  gathers, per-chip HBM drops by the island size, and no gather ever
-  crosses DCN — exactly one copy per island, as in the reference.
+  slice's chips (`P(None, ("rows","samples"), ...)`); sampling rides
+  intra-slice gathers, per-chip memory drops by the island size, and no
+  gather ever crosses the host network — exactly one copy per island, as
+  in the reference.
 - huge stacks   → SHARD_GLOBAL: shard across every axis including slices
-  (last resort; sampling may cross DCN).
+  (last resort; sampling may cross the host network).
 
 The size heuristic replaces the reference's least-loaded-device pick: XLA
 places shards deterministically, so "least loaded" reduces to choosing how
@@ -24,6 +26,7 @@ many chips share each replica.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import jax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
@@ -31,10 +34,23 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from .multislice import SLICE_AXIS
 from .tiles import ROWS_AXIS
 
-# Per-chip texture budget before the policy stops replicating. The v5e
-# chip has 16 GB HBM; geometry/film/wavefront state dominate, so textures
-# get a conservative slice of it by default.
-DEFAULT_TEXTURE_BUDGET = 256 << 20
+# Per-device texture budget before the policy stops replicating: geometry,
+# film and wavefront state dominate device memory, so textures get a
+# conservative 1/64 of what the allocator may use. Devices that report no
+# limit (the CPU backend) get TEXTURE_BUDGET_FALLBACK.
+TEXTURE_BUDGET_SHARE = 64
+TEXTURE_BUDGET_FALLBACK = 256 << 20
+
+
+def default_texture_budget(device=None) -> int:
+    """Bytes of textures one device keeps before placement stops
+    replicating, from the device's own memory limit."""
+    device = device if device is not None else jax.devices()[0]
+    stats = device.memory_stats() or {}
+    limit = stats.get("bytes_limit")
+    if not limit:
+        return TEXTURE_BUDGET_FALLBACK
+    return int(limit) // TEXTURE_BUDGET_SHARE
 
 
 def texture_nbytes(scene) -> int:
@@ -46,12 +62,15 @@ def texture_nbytes(scene) -> int:
 
 
 def plan_texture_placement(nbytes: int, mesh: Mesh,
-                           budget_bytes: int = DEFAULT_TEXTURE_BUDGET) -> dict:
+                           budget_bytes: Optional[int] = None) -> dict:
     """Pick replicate / shard-per-island / shard-global from the stack size.
 
     Returns {mode, island_axes, per_chip_bytes, replicas} — `replicas` is
     the number of full copies across the whole mesh (the reference's
-    one-per-island invariant)."""
+    one-per-island invariant). budget_bytes defaults to the mesh devices'
+    default_texture_budget."""
+    if budget_bytes is None:
+        budget_bytes = default_texture_budget(mesh.devices.flat[0])
     shape = dict(zip(mesh.axis_names, mesh.devices.shape))
     n_slices = shape.get(SLICE_AXIS, 1)
     island_axes = tuple(a for a in mesh.axis_names if a != SLICE_AXIS)
@@ -75,7 +94,7 @@ def _island_size(axes: tuple, mesh: Mesh) -> int:
 
 
 def place_scene_textures(scene, mesh: Mesh,
-                         budget_bytes: int = DEFAULT_TEXTURE_BUDGET):
+                         budget_bytes: Optional[int] = None):
     """Apply the placement plan to the scene's texture stacks.
 
     Returns (scene, report). Atlases ([T, H, W, C]) shard over their row

@@ -1,19 +1,19 @@
-"""Multi-host (multi-slice) rendering: the DCN story.
+"""Multi-host (multi-slice) rendering: the host-network story.
 
 The reference scales past one host with MPI-style replication + NVLink
-islands per host (`optixNVLink.cpp:1698` topology discovery). The TPU-pod
-analogue is a 3-axis mesh:
+islands per host (`optixNVLink.cpp:1698` topology discovery). The
+multi-host analogue is a 3-axis mesh:
 
     ("slice", "rows", "samples")
 
-- "slice" is the DCN axis: one entry per TPU slice (host group). Image
-  rows are partitioned across slices, and — by construction — NO collective
-  crosses this axis during rendering: each slice renders its own row band
-  and the framebuffer stays sharded. DCN only moves pixels if/when the
-  host gathers the final image, exactly the traffic pattern DCN is good
-  for (bulk, once per frame, latency-insensitive).
+- "slice" is the host-network axis: one entry per host (device group).
+  Image rows are partitioned across slices, and — by construction — NO
+  collective crosses this axis during rendering: each slice renders its
+  own row band and the framebuffer stays sharded. The host network only
+  moves pixels if/when the host gathers the final image (bulk, once per
+  frame, latency-insensitive).
 - "rows" and "samples" live inside a slice: row tiles plus the per-launch
-  sample `pmean`, whose all-reduce rides ICI only.
+  sample `pmean`, whose all-reduce stays on the intra-host link.
 
 On this single-host environment the slice axis is exercised with virtual
 CPU devices (tests) and the driver's multi-chip dry run; on a real pod the
@@ -42,7 +42,7 @@ def make_multislice_mesh(n_slices: int, n_rows: int, n_samples: int = 1,
                          devices=None) -> Mesh:
     """(slice, rows, samples) mesh. On a pod, order devices so that each
     contiguous group of n_rows*n_samples belongs to one slice — then the
-    samples/rows collectives are intra-slice (ICI) by construction."""
+    samples/rows collectives are intra-slice (intra-host) by construction."""
     import numpy as np
     devices = devices if devices is not None else jax.devices()
     need = n_slices * n_rows * n_samples
@@ -100,7 +100,7 @@ def render_accumulate_multislice(scene: DeviceScene, cam_params, film,
         local = jnp.zeros_like(accum_shard)
         local, _ = jax.lax.fori_loop(0, samples_per_launch, body,
                                      (local, jnp.zeros((), jnp.int32)))
-        # ICI-only collective: the sample mean stays inside the slice.
+        # Intra-slice collective: the sample mean stays inside the host.
         local = jax.lax.pmean(local, SAMPLES_AXIS)
         prev_n = subframe.astype(jnp.float32)
         new_n = jnp.float32(samples_per_launch * n_samp)

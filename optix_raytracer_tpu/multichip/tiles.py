@@ -1,16 +1,18 @@
 """Multi-chip rendering: device-mesh sharded tiles + sample parallelism.
 
-The TPU-native replacement for the reference's multi-GPU machinery:
+The mesh form of the reference's multi-GPU machinery:
 
 - `optixMultiGPU` replicates scene/pipeline per device and statically assigns
   interleaved 8×4 pixel tiles (`SDK/sutil/WorkDistribution.h:50-81`), merging
   into a zero-copy host framebuffer (`optixMultiGPU.cpp:1120-1168`). Here the
   framebuffer *is* a mesh-sharded jax array: each chip raygen-traces only its
   row-block of the image inside `shard_map`, the scene pytree is replicated,
-  and "merging" is the sharded output array itself — assembled over ICI only
+  and "merging" is the sharded output array itself — assembled only
   if/when the host asks for it.
 - `optixNVLink`'s topology discovery / P2P islands (`optixNVLink.cpp:1698`)
-  collapse into the `jax.sharding.Mesh`: ICI adjacency is what mesh axes mean.
+  collapse into the `jax.sharding.Mesh`. The mesh follows the algorithm
+  alone (row tiles x sample shards): the devices of one host are joined
+  all to all, so no device order is closer than another.
 - Sample-parallel mode ("sp"): every chip renders the full frame with a
   different subframe seed and the results are mean-reduced with `psum` over
   the mesh axis — the latency-optimized interactive mode.

@@ -1,6 +1,6 @@
 """DeviceScene: everything the wavefront engine needs, as one pytree.
 
-The TPU-native analogue of the reference's launch-params + SBT package: the
+The analogue of the reference's launch-params + SBT package: the
 `whitted::LaunchParams` device pointers (`SDK/cuda/whitted.h:89-107`) plus the
 per-hitgroup geometry/material views the SBT records carry
 (`SDK/sutil/Scene.cpp` createSBT). Because it is a pytree, the whole scene
@@ -12,15 +12,12 @@ from __future__ import annotations
 from typing import Optional
 
 import jax.numpy as jnp
-from flax import struct
+from ..core import pytree
 
-from ..accel.clusters import (ClusterSet, LANES as _CLUSTER_LANES,
-                              MAX_STREAM_CLUSTERS, MAX_SUPERCLUSTERS,
-                              SC_CLUSTERS, build_clusters)
+from ..accel.bruteforce import BRUTE_FORCE_MAX_TRIS
 from ..accel.geometry import TriangleGeometry, build_triangle_geometry
 from ..accel.lbvh import LBVH, build_lbvh
 from ..accel.motion import MotionTriangles
-from ..accel.pallas_bf import MAX_SMEM_TRIS
 from ..accel.primitives import CustomPrims
 from ..accel.tlas import InstanceTable
 from ..accel.volume import DensityGrid
@@ -28,7 +25,7 @@ from ..shade.lights import LightTable, ParallelogramLight
 from ..shade.materials import MaterialTable, make_material_table
 
 
-@struct.dataclass
+@pytree.dataclass
 class DeviceScene:
     geom: TriangleGeometry
     tri_mat: jnp.ndarray                 # [M] int32 material id per triangle
@@ -40,46 +37,38 @@ class DeviceScene:
     textures: jnp.ndarray                # [T, TH, TW, 4] f32 mip atlas
     tex_size: jnp.ndarray                # [T, 2] i32 level-0 (h, w)
     tex_mip: jnp.ndarray                 # [T, L, 4] i32 (y, x, h, w) / level
-    bvh: LBVH                            # threaded LBVH (empty → brute force)
-    # Triangle clusters for the Pallas large-mesh traversal (accel/clusters
-    # .py); built for meshes past the fused kernel's SMEM budget.
-    clusters: ClusterSet = struct.field(default_factory=ClusterSet.empty)
+    bvh: LBVH                            # threaded BVH (empty → brute force)
     # Two-level structure: when non-empty, `geom` is the OBJECT-space
     # concatenation of the instanced meshes and traversal goes through the
     # IAS path (accel/tlas.py) — per-frame instance matrix updates are
     # functional replaces, no geometry rebuild (`Scene.cpp:1134-1213`).
-    instances: InstanceTable = struct.field(
+    instances: InstanceTable = pytree.field(
         default_factory=InstanceTable.empty)
     # Participating medium composited into the standard bounce loop
     # (`optixVolumeViewer/volume.cu:284-366`): segment transmittance,
     # single scattering toward the area light, attenuated NEE shadows.
-    volume: DensityGrid = struct.field(default_factory=DensityGrid.empty)
-    volume_params: jnp.ndarray = struct.field(
+    volume: DensityGrid = pytree.field(default_factory=DensityGrid.empty)
+    volume_params: jnp.ndarray = pytree.field(
         default_factory=lambda: jnp.zeros((2,), jnp.float32))  # sigma_t, alb
     # 2-key motion triangles traced with per-path shutter times through the
     # standard path (`optixSimpleMotionBlur` motion GAS).
-    motion_geom: MotionTriangles = struct.field(
+    motion_geom: MotionTriangles = pytree.field(
         default_factory=MotionTriangles.empty)
-    motion_tri_mat: jnp.ndarray = struct.field(
+    motion_tri_mat: jnp.ndarray = pytree.field(
         default_factory=lambda: jnp.zeros((0,), jnp.int32))
-    # Per-mesh cluster tables for instanced scenes ({(lo, hi) prim range:
-    # ClusterSet} in OBJECT space): the IAS path traverses large shared
-    # meshes through the cluster kernels instead of per-instance brute
-    # force (accel/tlas.py intersect_instances).
-    instance_clusters: dict = struct.field(default_factory=dict)
     # Per-material 16-channel texture bundles (base/normal/emissive/mr in
     # channels): ONE sliced gather fetches a material's whole texture set
     # (pack_bundles; shade/texture.py sample_bundle).
-    bundles: jnp.ndarray = struct.field(
+    bundles: jnp.ndarray = pytree.field(
         default_factory=lambda: jnp.zeros((0, 1, 1, 16), jnp.float32))
-    bundle_mip: jnp.ndarray = struct.field(
+    bundle_mip: jnp.ndarray = pytree.field(
         default_factory=lambda: jnp.zeros((0, 1, 4), jnp.int32))
     # Quad-row form of the bundle atlas: one [128] row per (bundle, level,
     # texel) holding the full 2x2x16 bilinear footprint, so a bundle fetch
-    # is ONE fast-path [N, 128] row gather per mip level (pack_bundles).
-    bundle_quads: jnp.ndarray = struct.field(
+    # is ONE [N, 128] row gather per mip level (pack_bundles).
+    bundle_quads: jnp.ndarray = pytree.field(
         default_factory=lambda: jnp.zeros((0, 128), jnp.float32))
-    bundle_quad_base: jnp.ndarray = struct.field(
+    bundle_quad_base: jnp.ndarray = pytree.field(
         default_factory=lambda: jnp.zeros((0, 1), jnp.int32))
     # --- Opacity micromaps (`optixOpacityMicromapArrayBuild`,
     # `optix_host.h:731`; consumed by the occlusion path the way the
@@ -88,49 +77,34 @@ class DeviceScene:
     # Per-micro-triangle 4-state classification [M, 4^level] and the
     # per-triangle summary [M] (accel/micromap.py); empty when the scene
     # has no cutout materials or micromaps were disabled.
-    omm_micro: jnp.ndarray = struct.field(
+    omm_micro: jnp.ndarray = pytree.field(
         default_factory=lambda: jnp.zeros((0, 1), jnp.uint8))
-    omm_summary: jnp.ndarray = struct.field(
+    omm_summary: jnp.ndarray = pytree.field(
         default_factory=lambda: jnp.zeros((0,), jnp.uint8))
     # Occlusion-ray geometry split derived from the summaries: triangles
     # certain to occlude (summary OPAQUE + every non-cutout triangle) get
     # a first-hit-exit any-hit query; only summary-UNKNOWN triangles walk
     # the anyhit re-entry loop; summary-TRANSPARENT ones appear in
     # neither (they never block light).
-    omm_solid_geom: "TriangleGeometry" = struct.field(
+    omm_solid_geom: "TriangleGeometry" = pytree.field(
         default_factory=TriangleGeometry.empty)
-    omm_unknown_geom: "TriangleGeometry" = struct.field(
+    omm_unknown_geom: "TriangleGeometry" = pytree.field(
         default_factory=TriangleGeometry.empty)
-    omm_unknown_ids: jnp.ndarray = struct.field(
+    omm_unknown_ids: jnp.ndarray = pytree.field(
         default_factory=lambda: jnp.zeros((0,), jnp.int32))
-    # Cluster table over the certain-solid split, so LARGE cutout meshes
-    # keep the Pallas cluster traversal for the one-shot occlusion query
-    # (the round-4 OMM path was brute-force-only; the reference applies
-    # micromaps on any GAS, `optixOpacityMicromap.cpp:29-30`).
-    omm_solid_clusters: ClusterSet = struct.field(
-        default_factory=ClusterSet.empty)
-    omm_level: int = struct.field(pytree_node=False, default=0)
+    # Threaded BVH over the certain-solid split, so LARGE cutout meshes
+    # answer the one-shot occlusion query by traversal instead of brute
+    # force (the reference applies micromaps on any GAS,
+    # `optixOpacityMicromap.cpp:29-30`).
+    omm_solid_bvh: LBVH = pytree.field(default_factory=LBVH.empty)
+    omm_level: int = pytree.field(pytree_node=False, default=0)
     # Static feature flags (not traced): e.g. "cutouts" enables alpha-mask
     # pass-through in the integrators. Determined at scene-build time.
-    features: tuple = struct.field(pytree_node=False, default=())
-    # Static bundle-atlas geometry (not traced): per bundle, a tuple of
-    # (h, w) LOGICAL level sizes. The fused megakernel specializes its
-    # in-kernel texture fetch on these (wavefront/pallas_pt.py); the
-    # traced `bundles` array carries only texel values.
-    bundle_meta: tuple = struct.field(pytree_node=False, default=())
-    # Static per-material texture wiring (not traced): one tuple per
-    # material, (bundle_id, has_base, has_normal, has_mr, has_emissive) —
-    # the MaterialData texture-presence flags (`MaterialData.h:62-103`)
-    # as compile-time facts the megakernel folds into its shading code.
-    mat_tex_flags: tuple = struct.field(pytree_node=False, default=())
+    features: tuple = pytree.field(pytree_node=False, default=())
 
     @property
     def num_triangles(self):
         return self.geom.num_triangles
-
-    @property
-    def has_bundles(self):
-        return self.bundles.shape[0] > 0
 
     @property
     def has_cutouts(self):
@@ -154,10 +128,6 @@ class DeviceScene:
     @property
     def has_bvh(self):
         return self.bvh.num_nodes > 0
-
-    @property
-    def has_clusters(self):
-        return self.clusters.num_clusters > 0
 
     @property
     def has_instances(self):
@@ -275,15 +245,14 @@ def pack_bundles(images, materials):
     RGB(7:10), roughness(10, mr map G), metallic(11, mr map B). The
     engine then fetches a material's entire texture set with one
     (2,2,16)-slice gather per mip level (shade/texture.py sample_bundle)
-    instead of 4 maps x 4 taps of scalar-slice gathers — XLA's TPU
-    gather cost is per-DESCRIPTOR, so this is the difference between
-    ~1 and ~10 Mrays/s on textured scenes (SURVEY hard part #4).
+    instead of 4 maps x 4 taps of scalar-slice gathers.
 
     Each mip level is stored with one extra wrapped row/col (border) so
     the 2x2 slice never crosses the wrap seam.
 
     Returns (bundles [B, H', W', 16] f32, bundle_mip [B, L, 4] i32,
-    mat_bundle [K] i32 (-1 = untextured)).
+    mat_bundle [K] i32 (-1 = untextured), bundle_quads [R, 128] f32,
+    bundle_quad_base [B, L] i32).
     """
     import numpy as np
     imgs = []
@@ -339,8 +308,7 @@ def pack_bundles(images, materials):
                 jnp.zeros((0, 1, 4), jnp.int32),
                 jnp.asarray(mat_bundle),
                 jnp.zeros((0, 128), jnp.float32),
-                jnp.zeros((0, 1), jnp.int32),
-                ())
+                jnp.zeros((0, 1), jnp.int32))
 
     chains = []
     for b in bundles:
@@ -377,10 +345,8 @@ def pack_bundles(images, materials):
 
     # Quad rows: every (bundle, level, texel) gets one 128-lane row holding
     # its full 2x2 bilinear footprint (2x2x16 channels, zero-padded to
-    # 128). A bilinear bundle fetch is then ONE [N, 128] row gather —
-    # measured ~2x faster than the (2,2,16)-slice gather at 2M lanes, and
-    # 128-lane rows are XLA's fast gather path ([N,128] 30 ms vs [N,32]
-    # 87 ms at 2M rows). Memory trades 8x for descriptor count.
+    # 128). A bilinear bundle fetch is then ONE [N, 128] row gather instead
+    # of a (2,2,16)-slice gather; memory trades 8x for gather count.
     quad_rows = []
     quad_base = np.zeros((len(bundles), n_levels), np.int32)
     r = 0
@@ -400,13 +366,8 @@ def pack_bundles(images, materials):
             r += hl * wl
     quads = (np.concatenate(quad_rows, axis=0) if quad_rows
              else np.zeros((0, 128), np.float32))
-    # Static level geometry per bundle (h, w) — the atlas offsets are a
-    # pure function of these (see mips fill-in above), so the fused
-    # kernel's packer can re-derive them without tracing `mips`.
-    meta = tuple(tuple((lv.shape[0], lv.shape[1]) for lv in chain)
-                 for chain in chains)
     return (jnp.asarray(out), jnp.asarray(mips), jnp.asarray(mat_bundle),
-            jnp.asarray(quads), jnp.asarray(quad_base), meta)
+            jnp.asarray(quads), jnp.asarray(quad_base))
 
 
 def _build_scene_omm(materials, tri_mat, corner_uv, textures, level):
@@ -471,17 +432,35 @@ def _build_scene_omm(materials, tri_mat, corner_uv, textures, level):
     return states, summary
 
 
+def _build_bvh_if_large(geom: TriangleGeometry) -> Optional[LBVH]:
+    """Threaded BVH for a mesh past the brute-force limit, else None.
+    Prefers the native host-side SAH builder (better trees for static
+    scenes) and falls back to the on-device LBVH."""
+    if geom.num_triangles <= BRUTE_FORCE_MAX_TRIS:
+        return None
+    from ..accel import native
+    bvh = native.build_bvh_sah(geom)
+    return bvh if bvh is not None else build_lbvh(geom)
+
+
 def make_device_scene(vertices, indices, tri_mat, materials,
                       area_light: Optional[ParallelogramLight] = None,
                       lights=(), prims: Optional[CustomPrims] = None,
                       miss_color=(0.0, 0.0, 0.0), normals=None, uvs=None,
-                      textures=(), with_bvh: bool = False,
+                      textures=(), bvh: Optional[LBVH] = None,
                       instances: Optional[InstanceTable] = None,
                       volume: Optional[DensityGrid] = None,
                       volume_sigma: float = 8.0, volume_albedo: float = 0.9,
                       motion=None, opacity_micromaps: bool = True,
                       omm_level: int = 3) -> DeviceScene:
-    """motion: optional dict(verts0, verts1, indices, tri_mat=0) — 2-key
+    """Build the device scene.
+
+    Traversal follows the triangle count: a mesh over BRUTE_FORCE_MAX_TRIS
+    triangles gets a threaded BVH (native SAH build, device LBVH when the
+    native builder is unavailable); smaller meshes are brute-forced.
+    bvh: a BVH already built for this geometry (skips the build).
+    Instanced scenes traverse through the IAS path (accel/tlas.py).
+    motion: optional dict(verts0, verts1, indices, tri_mat=0) — 2-key
     moving triangles traced with per-path times through the main engine."""
     if area_light is None:
         area_light = ParallelogramLight.make(
@@ -489,25 +468,12 @@ def make_device_scene(vertices, indices, tri_mat, materials,
     tex, tex_size, tex_mip = pack_textures(list(textures))
     mat_table = (materials if isinstance(materials, MaterialTable)
                  else make_material_table(materials))
-    bundle_meta = ()
-    mat_tex_flags = ()
     if textures is not None and len(list(textures)) and isinstance(
             materials, (list, tuple)):
         (bundles, bundle_mip, mat_bundle,
-         bundle_quads, bundle_quad_base, bundle_meta) = pack_bundles(
+         bundle_quads, bundle_quad_base) = pack_bundles(
             list(textures), materials)
         mat_table = mat_table.replace(bundle=jnp.asarray(mat_bundle))
-
-        def _tid(m, k):
-            g = m.get if isinstance(m, dict) else (
-                lambda kk, d: getattr(m, kk, d))
-            return int(g(k, -1))
-
-        mat_tex_flags = tuple(
-            (int(mat_bundle[k]),
-             _tid(m, "base_tex") >= 0, _tid(m, "normal_tex") >= 0,
-             _tid(m, "mr_tex") >= 0, _tid(m, "emissive_tex") >= 0)
-            for k, m in enumerate(materials))
     else:
         bundles = jnp.zeros((0, 1, 1, 16), jnp.float32)
         bundle_mip = jnp.zeros((0, 1, 4), jnp.int32)
@@ -516,44 +482,8 @@ def make_device_scene(vertices, indices, tri_mat, materials,
     geom = build_triangle_geometry(vertices, indices, normals=normals,
                                    uvs=uvs)
     tri_mat_arr = jnp.asarray(tri_mat, jnp.int32)
-    bvh = None
-    if with_bvh:
-        # Prefer the native host-side SAH builder (better trees for static
-        # scenes); fall back to the on-device LBVH.
-        from ..accel import native
-        bvh = native.build_bvh_sah(geom)
-        if bvh is None:
-            bvh = build_lbvh(geom)
-    # Cluster table for the Pallas large-mesh traversal: any mesh past the
-    # fused kernel's SMEM budget, up to the HBM-streaming cluster cap
-    # (VMEM-resident kernels below MAX_CLUSTERS, DMA-streaming beyond).
-    # (Instanced scenes traverse through the IAS path instead.)
-    clusters = None
-    instance_clusters = {}
-    n_tris = geom.num_triangles
-    if (instances is None and n_tris > MAX_SMEM_TRIS
-            and -(-n_tris // _CLUSTER_LANES)
-            <= MAX_SUPERCLUSTERS * SC_CLUSTERS):
-        # SAH-tree leaf order makes tighter clusters than raw morton
-        # (~25% fewer clusters per ray block); fall back to morton when
-        # the native builder is unavailable.
-        from ..accel import native
-        order = native.sah_leaf_order(geom)
-        clusters = build_clusters(geom, tri_mat_arr, order=order)
-    elif instances is not None and instances.prim_ranges:
-        # Per-mesh (object-space) cluster tables for the IAS path: one per
-        # unique shared-GAS range past the brute-force sweet spot.
-        from ..accel import native
-        from ..accel.tlas import slice_geometry
-        for rng_ in set(instances.prim_ranges):
-            lo, hi = rng_
-            m = hi - lo
-            if (m > MAX_SMEM_TRIS
-                    and -(-m // _CLUSTER_LANES) <= MAX_STREAM_CLUSTERS):
-                sub = slice_geometry(geom, lo, hi)
-                order = native.sah_leaf_order(sub)
-                instance_clusters[rng_] = build_clusters(
-                    sub, tri_mat_arr[lo:hi], order=order)
+    if bvh is None and instances is None:
+        bvh = _build_bvh_if_large(geom)
     features = []
     if isinstance(materials, (list, tuple)):
         if any(m.get("cutout", 0) or m.get("alpha_mode", 0) == 1
@@ -614,19 +544,7 @@ def make_device_scene(vertices, indices, tri_mat, materials,
         unknown_ids = np.nonzero(unknown)[0].astype(np.int32)
         solid_geom_ = build_triangle_geometry(
             vertices, idx_np[solid], normals=normals, uvs=uvs)
-        # Large certain-solid splits keep the cluster traversal for the
-        # one-shot occlusion query (same eligibility rule as the scene's
-        # own cluster table above).
-        solid_clusters = None
-        n_solid = solid_geom_.num_triangles
-        if (n_solid > MAX_SMEM_TRIS
-                and -(-n_solid // _CLUSTER_LANES)
-                <= MAX_SUPERCLUSTERS * SC_CLUSTERS):
-            from ..accel import native
-            order = native.sah_leaf_order(solid_geom_)
-            solid_clusters = build_clusters(
-                solid_geom_, jnp.asarray(tm_np[solid], jnp.int32),
-                order=order)
+        solid_bvh = _build_bvh_if_large(solid_geom_)
         omm = dict(
             omm_micro=jnp.asarray(states),
             omm_summary=jnp.asarray(summary),
@@ -635,8 +553,8 @@ def make_device_scene(vertices, indices, tri_mat, materials,
             omm_unknown_geom=build_triangle_geometry(
                 vertices, idx_np[unknown], normals=normals, uvs=uvs),
             omm_unknown_ids=jnp.asarray(unknown_ids),
-            **({"omm_solid_clusters": solid_clusters}
-               if solid_clusters is not None else {}),
+            **({"omm_solid_bvh": solid_bvh}
+               if solid_bvh is not None else {}),
         )
     mgeom = MotionTriangles.empty()
     mmat = jnp.zeros((0,), jnp.int32)
@@ -655,8 +573,6 @@ def make_device_scene(vertices, indices, tri_mat, materials,
         motion_tri_mat=mmat,
         geom=geom,
         bvh=bvh if bvh is not None else LBVH.empty(),
-        clusters=clusters if clusters is not None else ClusterSet.empty(),
-        instance_clusters=instance_clusters,
         instances=(instances if instances is not None
                    else InstanceTable.empty()),
         tri_mat=tri_mat_arr,
@@ -672,7 +588,5 @@ def make_device_scene(vertices, indices, tri_mat, materials,
         bundle_mip=bundle_mip,
         bundle_quads=bundle_quads,
         bundle_quad_base=bundle_quad_base,
-        bundle_meta=bundle_meta,
-        mat_tex_flags=mat_tex_flags,
         **omm,
     )

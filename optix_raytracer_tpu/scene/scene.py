@@ -21,10 +21,6 @@ from ..shade import materials as mats
 from .device_scene import DeviceScene, make_device_scene
 from .gltf import load_gltf
 
-# Brute force beats traversal until roughly the fused kernel's SMEM budget.
-BVH_THRESHOLD_TRIS = 512
-
-
 @dataclasses.dataclass
 class MeshEntry:
     positions: np.ndarray
@@ -219,8 +215,7 @@ class Scene:
                       up=(0, 1, 0), fov_y=35.0, aspect=width / height)
 
     # --- finalize (Scene.cpp:667-690) ---
-    def finalize(self, lights=None, area_light=None,
-                 with_bvh: Optional[bool] = None) -> DeviceScene:
+    def finalize(self, lights=None, area_light=None) -> DeviceScene:
         if self.instances:
             return self._finalize_instanced(lights, area_light)
         all_pos, all_idx, all_n, all_uv, tri_mat = [], [], [], [], []
@@ -273,17 +268,13 @@ class Scene:
                              else np.zeros((len(p), 2), np.float32))
             uvs = np.concatenate(parts)
 
-        if with_bvh is None:
-            with_bvh = len(indices) > BVH_THRESHOLD_TRIS
-
         return make_device_scene(
             positions, indices, tri_mat,
             self.materials or [{"kind": mats.DIFFUSE}],
             lights=lights if lights is not None else self.lights,
             area_light=area_light,
             miss_color=self.miss_color,
-            normals=normals, uvs=uvs, textures=self.textures,
-            with_bvh=with_bvh)
+            normals=normals, uvs=uvs, textures=self.textures)
 
     def _finalize_instanced(self, lights, area_light) -> DeviceScene:
         """Two-level finalize: meshes stay in OBJECT space (their own
@@ -343,4 +334,4 @@ class Scene:
                  for p, n in zip(all_pos, all_n)])
                 if any(n is not None for n in all_n) else None),
             uvs=np.concatenate(all_uv),
-            textures=self.textures, with_bvh=False, instances=table)
+            textures=self.textures, instances=table)

@@ -11,7 +11,7 @@ branchlessly, so one fused sample pass serves a heterogeneous light list.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from ..core import pytree
 
 from ..core import rng as _rng
 from ..core.vecmath import cross, length, normalize
@@ -24,7 +24,7 @@ PARALLELOGRAM = 3   # area light
 VOLUMETRIC = 4      # sphere-ish soft light (imgui_test volumetric_light.h)
 
 
-@struct.dataclass
+@pytree.dataclass
 class ParallelogramLight:
     """Area light spanned by (v1, v2) from `corner` — the Cornell light
     (`optixPathTracer.cpp` light setup; sampled at `optixPathTracer.cu:382-409`)."""
@@ -52,7 +52,7 @@ class ParallelogramLight:
         return self.corner + u1[..., None] * self.v1 + u2[..., None] * self.v2
 
 
-@struct.dataclass
+@pytree.dataclass
 class LightTable:
     """SoA table of simple lights (point/ambient/directional/volumetric).
 

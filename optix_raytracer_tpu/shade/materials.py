@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import pytree
 
 # Material kinds (MaterialData.h Type tags + imgui_test DiffuseMaterial)
 DIFFUSE = 0       # lambertian (imgui_test diffuse.h)
@@ -36,7 +36,7 @@ CUT_CIRCLE = 2
 CUT_TEXTURE = 3
 
 
-@struct.dataclass
+@pytree.dataclass
 class MaterialTable:
     kind: jnp.ndarray            # [K] int32
     base_color: jnp.ndarray      # [K, 3] albedo / diffuse color
@@ -132,15 +132,13 @@ _FIELDS = (  # (name, width, integer)
 
 
 def _gather_onehot(table: MaterialTable, mid):
-    """Small-table gather as a one-hot MXU matmul.
+    """Small-table gather as a one-hot matmul.
 
-    XLA's TPU gather costs ~15 cycles per ROW PER DESCRIPTOR, so the 19
-    per-field gathers of the naive path cost ~400 ms per 2M-lane bounce.
     For the small material tables every real scene has (K <= 128 — the SBT
     rarely holds more distinct materials), one [N, K] one-hot matmul
-    against a packed [K, 32] plane fetches every field in one MXU pass
-    (~2 ms at 2M lanes) and is bit-exact: exactly one 1.0 x v term per
-    row, the 0.0 x w terms vanish, f32 accumulate.
+    against a packed [K, 29] plane fetches every field at once instead of
+    19 per-field gathers. It is bit-exact at HIGHEST precision: exactly
+    one 1.0 x v term per row, the 0.0 x w terms vanish, f32 accumulate.
     """
     k = table.num
     cols = []

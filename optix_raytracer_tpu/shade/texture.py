@@ -1,8 +1,8 @@
 """Texture sampling: bilinear + trilinear-mipmap lookup into the mip atlas.
 
 Replaces `cudaTextureObject_t` sampling in the PBR closest-hit
-(`SDK/cuda/whitted.cu:160-168` sampleTexture, `MaterialData.h:62-73`). TPU has
-no texture units, so this is four gathers + a lerp per level — SURVEY.md §7
+(`SDK/cuda/whitted.cu:160-168` sampleTexture, `MaterialData.h:62-73`). XLA
+reaches no texture units, so this is four gathers + a lerp per level — SURVEY.md §7
 hard part #4. Wrap addressing, linear filtering; texel centers at
 half-integer uv like CUDA's normalized-coordinate linear mode. Mip level
 selection uses the ray-cone footprint (cone width x per-triangle uv
@@ -83,9 +83,7 @@ def sample_bundle(bundles, bundle_mip, bundle_id, uv, texel_scale=None,
     normal RGB(4:7), emissive RGB(7:10), roughness(10), metallic(11) in
     its channels, mip chain with a +1 wrapped border per level. The whole
     material's texture set is fetched with ONE (2,2,16)-slice gather per
-    mip level — XLA's TPU gather costs ~constant per descriptor, so
-    fusing the 4 maps x 4 taps of the naive path into 2 descriptors is
-    ~8x cheaper (measured: 280 ms -> 65 ms per 2M fetches per level).
+    mip level instead of the 4 maps x 4 taps of the naive path.
 
     bundles: [B, H', W', 16]; bundle_mip: [B, L, 4] i32 (y x h w; h/w are
     LOGICAL level sizes, each level stored with one extra wrapped
@@ -95,8 +93,7 @@ def sample_bundle(bundles, bundle_mip, bundle_id, uv, texel_scale=None,
     quads/quad_base (device_scene.pack_bundles): the quad-row atlas —
     one [128] row per (bundle, level, texel) carrying the whole 2x2x16
     bilinear footprint. When given, each mip fetch is ONE [N, 128] row
-    gather (XLA's fast gather shape: measured 30 ms vs 65 ms for the
-    (2,2,16)-slice form at 2M lanes).
+    gather instead of the (2,2,16)-slice form.
     """
     import jax
 
@@ -111,13 +108,12 @@ def sample_bundle(bundles, bundle_mip, bundle_id, uv, texel_scale=None,
     n_levels = bundle_mip.shape[1]
 
     def tiny_fetch(idx, plane, k):
-        """Per-lane row fetch from a tiny [k, C] table as a one-hot MXU
-        matmul — a per-lane XLA gather costs ~15 ms per 2M lanes even
-        from a 4-entry table, and sample_bundle needs ~7 such lookups
-        (mip entries, chain lengths, quad bases); one-hot matmuls make
-        them ~1 ms each. Exact: one 1.0 x v term per row. Past 128 rows
-        the [N, k] one-hot's HBM cost beats the gather it replaces
-        (materials.gather uses the same cutoff), so fall back."""
+        """Per-lane row fetch from a tiny [k, C] table as a one-hot
+        matmul (sample_bundle needs ~7 such lookups: mip entries, chain
+        lengths, quad bases). Exact at HIGHEST precision: one 1.0 x v
+        term per row. Past 128 rows the [N, k] one-hot moves more memory
+        than the gather it replaces (materials.gather uses the same
+        cutoff), so fall back."""
         if k > 128:
             return plane[idx]
         sh = idx.shape

@@ -1,4 +1,4 @@
-"""The wavefront execution engine: the TPU-native `optixLaunch`.
+"""The wavefront execution engine: the `optixLaunch` of this framework.
 
 Where the reference launches a driver megakernel whose raygen program loops
 bounces with divergent `optixTrace` calls per pixel
@@ -6,7 +6,7 @@ bounces with divergent `optixTrace` calls per pixel
 this engine runs the whole wavefront in lock-step: a `lax.fori_loop` over bounce
 depth carrying a structure-of-arrays path state, with
 
-  raygen  →  intersect (MXU matmul / LBVH traversal)  →  shade (branchless
+  raygen  →  intersect (brute force / BVH traversal)  →  shade (branchless
   material select over the SoA material table = the SBT dispatch)  →  NEE
   shadow rays  →  sample next direction  →  Russian roulette,
 
@@ -83,8 +83,8 @@ def _pbr_pdf(n, wo, wi, roughness, p_spec):
 
 
 def _nee_direct_light(scene: DeviceScene, hit_p, n, throughput_albedo, rng,
-                      chunk_size, pbr=None, times=None, coherent=True,
-                      mask=None, group_walk=None):
+                      chunk_size, pbr=None, times=None, mask=None,
+                      impl="auto"):
     """Next-event estimation against the parallelogram area light.
 
     Estimator matches the reference path tracer (`optixPathTracer.cu:375-409`):
@@ -106,17 +106,15 @@ def _nee_direct_light(scene: DeviceScene, hit_p, n, throughput_albedo, rng,
     facing = n_dl > 0.0
 
     # Lanes whose contribution is masked out anyway (miss/dead/specular or
-    # facing away) get an empty ray window: the traversal's block cull then
-    # skips whole blocks of them — on a typical framed mesh most of the
-    # frame is background, so most shadow blocks vanish outright.
+    # facing away) get an empty ray window: the brute-force kernel skips
+    # ray blocks made only of such lanes, and BVH lanes finish at once.
     shadow_live = facing if mask is None else (facing & mask)
     shadow_rays = Rays(origin=hit_p, direction=wi,
                        tmin=jnp.full(dist.shape, RAY_TMIN, jnp.float32),
                        tmax=jnp.where(shadow_live,
                                       dist * SHADOW_TMAX_SCALE, 0.0))
     occluded = scene_any(scene, shadow_rays, chunk_size=chunk_size,
-                         times=times, coherent=coherent,
-                         group_walk=group_walk)
+                         times=times, impl=impl)
 
     # Transmittance-weighted NEE: attenuate the shadow ray through the
     # participating medium (volume.cu:310 transmittance estimate).
@@ -143,55 +141,9 @@ def _nee_direct_light(scene: DeviceScene, hit_p, n, throughput_albedo, rng,
     return contrib, rng
 
 
-def _sort_wavefront(scene: DeviceScene, state):
-    """Coherence-sort the ENTIRE path state for the next bounce — the
-    wavefront `optixReorder` SER role (`optix_device.h:184`).
-
-    One variadic `lax.sort` carries every per-ray column alongside the
-    coherence key. This replaces round 2's per-traversal-call
-    argsort + gather + scatter-back: measured at 2M rays on TPU, the
-    hit-record scatter alone cost ~230 ms per call, while sorting the
-    whole state (key + ~20 columns) costs ~35 ms per BOUNCE — after it,
-    every traversal of the bounce (closest hit AND NEE shadow rays) runs
-    on pre-sorted rays with the exact block cull, dead paths pack into
-    whole-dead blocks the cull skips, and nothing is ever scattered back
-    (the film unsorts once per launch by the carried pixel id).
-    """
-    from ..accel.clusters import coherence_key
-
-    key = coherence_key(scene.clusters, state["rays"])
-    # Per-ray entries ride the sort; shape-() accumulators (rays_traced)
-    # pass through. ndim must be checked on the LEAVES — np.ndim of a
-    # struct-of-arrays pytree is 0, which would silently exempt it.
-    scalars = {k: v for k, v in state.items()
-               if all(x.ndim == 0 for x in jax.tree.leaves(v))}
-    vec = {k: v for k, v in state.items() if k not in scalars}
-    leaves, treedef = jax.tree.flatten(vec)
-    cols, widths = [], []
-    for leaf in leaves:
-        if leaf.ndim == 1:
-            widths.append(None)
-            cols.append(leaf)
-        else:
-            widths.append(leaf.shape[1])
-            cols.extend(leaf[:, j] for j in range(leaf.shape[1]))
-    out = jax.lax.sort((key, *cols), dimension=0, num_keys=1)[1:]
-    new_leaves, i = [], 0
-    for leaf, w in zip(leaves, widths):
-        if w is None:
-            new_leaves.append(out[i])
-            i += 1
-        else:
-            new_leaves.append(jnp.stack(out[i:i + w], axis=1))
-            i += w
-    new_state = jax.tree.unflatten(treedef, new_leaves)
-    new_state.update(scalars)
-    return new_state
-
-
 def trace_paths(scene: DeviceScene, rays: Rays, rng, max_depth: int = 4,
                 chunk_size: Optional[int] = 65536, pixel_spread=0.0,
-                sample_major: bool = False, active0=None, group_walk=None):
+                active0=None, impl: str = "auto"):
     """Integrate radiance along a wavefront of camera rays → [N, 3].
 
     The per-pixel bounce loop of `optixPathTracer.cu:281-304`, restructured as
@@ -201,12 +153,9 @@ def trace_paths(scene: DeviceScene, rays: Rays, rng, max_depth: int = 4,
     their diffuse color) — branchless selects, since a wavefront carries few
     distinct kinds.
 
-    sample_major=True marks a wavefront whose consecutive lanes are the
-    spl samples of ONE pixel (see render_sample_group): the cluster path
-    then skips the per-bounce coherence sort entirely — each 32-row walk
-    group already shares one bounce origin (and one light direction for
-    NEE shadows), which is exactly the locality the exact cull's
-    group-gating bits exploit.
+    impl: "auto" (the traversal `intersect.traversal` picks) or "xla"
+    (brute force through the plain XLA intersector, never a hand-written
+    kernel). Returns (radiance [N, 3], rng [N], rays_traced).
     """
     n_rays = rays.tmin.shape[0]
     if scene.has_motion:
@@ -219,8 +168,8 @@ def trace_paths(scene: DeviceScene, rays: Rays, rng, max_depth: int = 4,
         active0 = jnp.ones((n_rays,), bool)
     else:
         # Lanes dead on arrival (e.g. strip-padding rows past the frame,
-        # render_sample_group): empty ray window so the traversal's block
-        # cull drops them, excluded from radiance and ray accounting.
+        # render_sample_group): empty ray window so the traversal skips
+        # them, excluded from radiance and ray accounting.
         rays = rays.replace(tmax=jnp.where(active0, rays.tmax, 0.0))
     state = dict(
         rays=rays,
@@ -238,7 +187,7 @@ def trace_paths(scene: DeviceScene, rays: Rays, rng, max_depth: int = 4,
         rays_traced=jnp.zeros((), jnp.float32),
     )
 
-    def bounce(depth, state, coherent=False, exact=False, group_walk=None):
+    def bounce(depth, state):
         rays = state["rays"]
         active = state["active"]
         throughput = state["throughput"]
@@ -246,8 +195,7 @@ def trace_paths(scene: DeviceScene, rays: Rays, rng, max_depth: int = 4,
         rng = state["rng"]
 
         hits = scene_closest(scene, rays, chunk_size=chunk_size,
-                             times=state["time"], coherent=coherent,
-                             exact=exact, group_walk=group_walk)
+                             times=state["time"], impl=impl)
         hit_valid = hits.valid & active
 
         # --- participating medium along this segment (volume.cu:284-366):
@@ -281,8 +229,7 @@ def trace_paths(scene: DeviceScene, rays: Rays, rng, max_depth: int = 4,
                 tmin=jnp.full(dist.shape, RAY_TMIN, jnp.float32),
                 tmax=jnp.where(scatter_live, dist * SHADOW_TMAX_SCALE, 0.0))
             occ_s = scene_any(scene, vol_shadow, chunk_size=chunk_size,
-                              times=state["time"], coherent=coherent,
-                              group_walk=group_walk)
+                              times=state["time"], impl=impl)
             tau_l = vol.optical_depth(scene.volume, p_s, wi_s,
                                       jnp.zeros_like(dist), dist, sigma_t)
             li = (light.emission * (ln_dl * light.area / dist2)[..., None]
@@ -309,16 +256,7 @@ def trace_paths(scene: DeviceScene, rays: Rays, rng, max_depth: int = 4,
         albedo_tex = None
         tex_alpha = None
         surf_uv = hits.uv
-        # The cluster walk kernel interpolates vertex normals in-kernel
-        # (clusters.py comp rows 18-26), so untextured smooth meshes on
-        # the cluster path need no shading_frame epilogue — its per-ray
-        # corner gathers cost more than the whole traversal at 2M rays.
-        from .intersect import _use_clusters
-        smooth_needs_frame = (scene.geom.smooth
-                              and not (_use_clusters(scene)
-                                       and not scene.has_instances))
-        if (scene.has_textures or scene.has_cutouts
-                or smooth_needs_frame):
+        if scene.has_textures or scene.has_cutouts or scene.geom.smooth:
             # Smooth-mesh path: interpolate vertex normals/uv; sample the
             # base-color texture when present (whitted.cu:160-168).
             # Custom-prim hits keep the analytic normal/uv.
@@ -341,7 +279,8 @@ def trace_paths(scene: DeviceScene, rays: Rays, rng, max_depth: int = 4,
                 rinv = scene.instances.inv_transform[
                     jnp.maximum(hits.inst_id, 0)][..., :, :3]
                 n_w = jnp.einsum("...j,...jk->...k",
-                                 frame["shading_normal"], rinv)
+                                 frame["shading_normal"], rinv,
+                                 precision=jax.lax.Precision.HIGHEST)
                 n_w = n_w / jnp.maximum(
                     jnp.linalg.norm(n_w, axis=-1, keepdims=True), 1e-12)
                 geom_n = jnp.where((is_tri & (hits.inst_id >= 0))[..., None],
@@ -358,10 +297,9 @@ def trace_paths(scene: DeviceScene, rays: Rays, rng, max_depth: int = 4,
                 texel_scale = jnp.where(
                     is_tri, cone * frame["uv_density"], 0.0)
 
-                # One (2,2,16)-slice gather per mip level fetches the whole
-                # material texture set (base/normal/emissive/mr bundled in
-                # channels) — XLA's TPU gather costs per DESCRIPTOR, so
-                # this is ~8x cheaper than per-map trilinear fetches.
+                # One gather per mip level fetches the whole material
+                # texture set (base/normal/emissive/mr bundled in
+                # channels) instead of per-map trilinear fetches.
                 b16 = sample_bundle(scene.bundles, scene.bundle_mip,
                                     jnp.where(is_tri, m["bundle"], -1),
                                     surf_uv, texel_scale=texel_scale,
@@ -492,8 +430,7 @@ def trace_paths(scene: DeviceScene, rays: Rays, rng, max_depth: int = 4,
             pbr=(dict(albedo=albedo, metallic=m["metallic"],
                       roughness=m["roughness"], wo=-d, is_pbr=is_pbr,
                       throughput=throughput) if scene.has_pbr else None),
-            times=state["time"], coherent=coherent,
-            mask=hit_valid & is_diffuse, group_walk=group_walk)
+            times=state["time"], mask=hit_valid & is_diffuse, impl=impl)
         radiance = radiance + jnp.where((hit_valid & is_diffuse)[..., None],
                                         contrib, 0.0)
 
@@ -565,10 +502,8 @@ def trace_paths(scene: DeviceScene, rays: Rays, rng, max_depth: int = 4,
         new_rays = Rays(origin=hit_p + offset_n * RAY_TMIN,
                         direction=new_dir,
                         tmin=jnp.full(hits.t.shape, RAY_TMIN, jnp.float32),
-                        # Dead lanes (miss/terminated) get an empty window:
-                        # the traversal's block cull drops whole blocks of
-                        # them (and the coherence sort packs them to the
-                        # tail), so later bounces only pay for live paths.
+                        # Dead lanes (miss/terminated) get an empty window
+                        # (set below), so later bounces skip them.
                         tmax=jnp.full(hits.t.shape, 1e16, jnp.float32))
 
         # --- Russian roulette (optixPathTracer.cu:294-298) after depth 1 ---
@@ -595,7 +530,7 @@ def trace_paths(scene: DeviceScene, rays: Rays, rng, max_depth: int = 4,
         new_rays = new_rays.replace(
             tmax=jnp.where(new_active, new_rays.tmax, 0.0))
 
-        out = dict(
+        return dict(
             rays=new_rays,
             time=state["time"],
             throughput=new_throughput,
@@ -606,59 +541,8 @@ def trace_paths(scene: DeviceScene, rays: Rays, rng, max_depth: int = 4,
             path_len=state["path_len"] + jnp.where(hit_valid, hits.t, 0.0),
             rays_traced=rays_traced,
         )
-        if "pix" in state:
-            out["pix"] = state["pix"]
-        return out
 
-    if scene.has_clusters and sample_major:
-        # Sample-major wavefronts are pixel-grouped by construction at
-        # EVERY depth (lanes never move), so no sort and no unsort; all
-        # bounces past the peel run the exact per-ray cull whose 8-bit
-        # group masks gate the walk to each pixel-group's own crossings.
-        # Group gating defaults ON here: every 32-row group shares a
-        # pixel (origin + NEE direction), so the gate bits are tight
-        # (measured +6% e2e on the 25k knot, while a wash on
-        # coherence-sorted strangers). Escape hatches: an explicit
-        # group_walk=False from the caller, or ORT_GROUP_WALK=0 (the
-        # kill-switch for a Mosaic rejection of the gated kernel on a
-        # new toolchain) — an unset env means ON on this path.
-        gw = group_walk
-        if gw is None:
-            import os
-            gw = os.environ.get("ORT_GROUP_WALK", "1") != "0"
-        state = bounce(0, state, coherent=True, group_walk=gw)
-        state = jax.lax.fori_loop(
-            1, max_depth,
-            lambda d, s: bounce(d, s, coherent=True, exact=True,
-                                group_walk=gw), state)
-    elif scene.has_clusters:
-        # Peel the first bounce: camera rays arrive tile-coherent (no sort
-        # needed; shadow rays inherit that coherence). Every later bounce
-        # first coherence-sorts the WHOLE path state (one variadic
-        # lax.sort — see _sort_wavefront) and then traverses pre-sorted
-        # with the exact block cull; the carried pixel id unsorts the
-        # radiance once at the end. Costs one extra unrolled bounce body
-        # in the executable — cluster scenes only.
-        state["pix"] = jnp.arange(n_rays, dtype=jnp.int32)
-        state = bounce(0, state, coherent=True)
-
-        def sorted_bounce(depth, s):
-            return bounce(depth, _sort_wavefront(scene, s),
-                          coherent=True, exact=True, group_walk=group_walk)
-
-        state = jax.lax.fori_loop(1, max_depth, sorted_bounce, state)
-        rad = state["radiance"]
-        out = jax.lax.sort(
-            (state["pix"], rad[:, 0], rad[:, 1], rad[:, 2], state["rng"]),
-            dimension=0, num_keys=1)
-        state["radiance"] = jnp.stack(out[1:4], axis=1)
-        # the returned per-ray rng must be in PIXEL order too — a caller
-        # resuming per-pixel streams would otherwise seed pixel i with
-        # pixel j's state on cluster scenes only
-        state["rng"] = out[4]
-    else:
-        state = jax.lax.fori_loop(
-            0, max_depth, functools.partial(bounce, coherent=True), state)
+    state = jax.lax.fori_loop(0, max_depth, bounce, state)
     return state["radiance"], state["rng"], state["rays_traced"]
 
 
@@ -666,7 +550,7 @@ def render_sample(scene: DeviceScene, cam_params, width: int, height: int,
                   subframe, max_depth: int = 4,
                   chunk_size: Optional[int] = 65536,
                   y0=0, full_width=None, full_height=None, y_stride=1,
-                  group_walk=None):
+                  impl: str = "auto"):
     """One progressive sample for a [height, width] pixel tile → radiance.
 
     The `launchSubframe` body (`optixPathTracer.cpp:488-511`): seed per-pixel
@@ -699,7 +583,7 @@ def render_sample(scene: DeviceScene, cam_params, width: int, height: int,
                                            max_depth=max_depth,
                                            chunk_size=chunk_size,
                                            pixel_spread=pixel_spread,
-                                           group_walk=group_walk)
+                                           impl=impl)
     return radiance.reshape(height, width, 3), rays_traced
 
 
@@ -707,7 +591,7 @@ def render_sample_group(scene: DeviceScene, cam_params, width: int,
                         height: int, subframe, spl: int, max_depth: int = 4,
                         chunk_size: Optional[int] = 65536,
                         y0=0, full_width=None, full_height=None,
-                        group_walk=None):
+                        impl: str = "auto"):
     """`spl` progressive samples for a [height, width] tile traced as ONE
     sample-major wavefront → (radiance SUM [h, w, 3], rays_traced).
 
@@ -715,13 +599,8 @@ def render_sample_group(scene: DeviceScene, cam_params, width: int,
     of pixel p, seeded `seed(pixel_idx, subframe + s)` — the exact RNG
     streams the sequential `render_sample` loop consumes, so the summed
     radiance matches it (same estimator, optixPathTracer.cu:306-319).
-    The payoff is traversal locality WITHOUT any sorting: the spl samples
-    of a pixel share their bounce-1 origin and their NEE light direction,
-    so each 32-row walk group's cluster-crossing union stays near the
-    per-ray floor at every depth (measured ~2x under the coherence-sorted
-    stranger grouping on the 25k-knot bounce wavefront — the
-    "amortize across samples" lever of the round-3 work model). Best when
-    spl is a power of two (pixel boundaries align with walk groups).
+    Neighbouring lanes then share their bounce-1 origin and their NEE
+    light direction, which keeps a block of rays on nearby geometry.
     """
     n = width * height
     full_w = width if full_width is None else full_width
@@ -750,82 +629,23 @@ def render_sample_group(scene: DeviceScene, cam_params, width: int,
     radiance, _, rays_traced = trace_paths(
         scene, rays, to_flat(rng), max_depth=max_depth,
         chunk_size=chunk_size, pixel_spread=pixel_spread,
-        sample_major=True, active0=in_frame, group_walk=group_walk)
+        active0=in_frame, impl=impl)
     return radiance.reshape(height, width, spl, 3).sum(axis=2), rays_traced
 
 
-# Rays per sample-major strip launch: bounds live wavefront state to the
-# ~2M-ray size the cluster kernels were tuned at (a full 1080p frame x 16
-# samples would otherwise be a 33M-ray state, ~4 GB of HBM per column set).
+# Rays per sample-major strip launch: bounds the live wavefront state (a
+# full 1080p frame x 16 samples would otherwise be a 33M-ray state, ~4 GB
+# of device memory per column set).
 _SPL_TILE_RAYS = 4 * 1024 * 1024
 
-
-def _spl_major_default() -> bool:
-    """Sample-major wavefront default for cluster scenes: opt-out
-    (ORT_SPL_MAJOR=0 reverts to the per-sample sequential loop with
-    coherence-sorted bounces). Estimator-exact either way — the switch
-    is purely a traversal-work tradeoff (see render_sample_group)."""
-    import os
-    return os.environ.get("ORT_SPL_MAJOR", "1") == "1"
-
-
-def _use_fused(scene: DeviceScene, impl: str) -> bool:
-    from ..accel import bruteforce as bf
-    from ..accel.pallas_bf import MAX_SMEM_TRIS
-    from .pallas_pt import (FUSED_PRIM_KINDS, MAX_FUSED_INST,
-                            MAX_FUSED_PRIMS, fused_inst_ranges)
-    if impl in ("xla", "spl"):
-        return False
-    if impl in ("fused", "fused_interpret"):
-        return True
-    prims_ok = (scene.prims.num <= MAX_FUSED_PRIMS
-                and all(k in FUSED_PRIM_KINDS
-                        for k in scene.prims.kinds_static))
-    from .pallas_pt import TEX_MAX_TABLE_BYTES, tex_static
-    if scene.has_textures:
-        # The megakernel's in-kernel texture unit is OPT-IN
-        # (ORT_FUSED_TEX=1): measured on the TPU chip (round 4) it lands
-        # 18.1 Mrays/s vs 22.9 for the XLA wavefront on the
-        # texture-heavy scene — the footprint-bounded chunk loops cost
-        # more than the gather traffic they avoid at these table sizes.
-        # The kernel stays available (and interpret-tested) for scenes
-        # where the table is tiny; the requirements below still gate it.
-        import os
-        from .pallas_pt import _tex_dtype
-        cfg = tex_static(scene)
-        itemsize = jnp.dtype(_tex_dtype()).itemsize
-        tex_ok = (os.environ.get("ORT_FUSED_TEX", "0") == "1"
-                  and cfg is not None
-                  and not scene.has_instances
-                  and cfg[2] * cfg[3] * itemsize <= TEX_MAX_TABLE_BYTES)
-        if not tex_ok:
-            return False
-    if scene.has_instances:
-        # Instanced scenes stay on the megakernel when the per-ray work
-        # (sum of instance triangle ranges) fits the SMEM-path budget —
-        # small IAS scenes keep megakernel speed (`Scene.cpp:1134-1213`
-        # one-pipeline behavior). Smooth meshes need the engine's
-        # shading-frame epilogue, which the kernel doesn't emit.
-        ranges = fused_inst_ranges(scene)
-        inst_ok = (len(ranges) <= MAX_FUSED_INST
-                   and sum(hi - lo for lo, hi in ranges) <= MAX_SMEM_TRIS
-                   and not scene.geom.smooth)
-    else:
-        inst_ok = True
-    return (jax.default_backend() in bf._TPU_PLATFORMS
-            and prims_ok
-            and inst_ok
-            and not scene.has_cutouts
-            and not scene.has_volume
-            and not scene.has_motion
-            and scene.geom.num_triangles <= MAX_SMEM_TRIS)
+IMPLS = ("auto", "xla", "spl")
 
 
 def _merge_launch(film, rad_sum, samples_per_launch):
     """Merge one launch's radiance SUM into the film: progressive-mean
     accumulation plus ONE per-launch variance-tracker estimate — the
-    single statistics convention shared by the fused and XLA paths (a
-    checkpoint written by either resumes correctly on the other)."""
+    single statistics convention of every launch path (a checkpoint
+    written by one resumes correctly on another)."""
     from ..core.film import Film
     prev_n = film.subframe.astype(jnp.float32)
     new_n = jnp.float32(samples_per_launch)
@@ -843,41 +663,33 @@ def _merge_launch(film, rad_sum, samples_per_launch):
 @functools.partial(jax.jit,
                    static_argnames=("width", "height", "samples_per_launch",
                                     "max_depth", "chunk_size", "full_width",
-                                    "full_height", "impl", "group_walk"))
+                                    "full_height", "impl"))
 def render_accumulate(scene: DeviceScene, cam_params, film, width: int,
                       height: int, samples_per_launch: int = 1,
                       max_depth: int = 4,
                       chunk_size: Optional[int] = 65536,
                       y0=0, full_width=None, full_height=None,
-                      impl: str = "auto", group_walk=None):
+                      impl: str = "auto"):
     """Progressive render step: adds `samples_per_launch` samples to the film.
 
     The full launchSubframe + accumulation-lerp pipeline
     (`optixPathTracer.cu:306-319`) as one XLA executable. Returns
     (film, rays_traced) — the ray count feeds the Mrays/s benchmark.
 
-    On TPU with an SMEM-sized mesh this dispatches to the fully-fused Pallas
-    megakernel (wavefront/pallas_pt.py); elsewhere it runs the portable
-    XLA wavefront loop. Both consume identical RNG streams.
+    impl: "auto" runs the XLA wavefront with the traversal that
+    `intersect.traversal` picks (the fused brute-force kernel on a GPU);
+    "xla" keeps every intersection in plain XLA (the reference the kernels
+    are measured against); "spl" traces sample-major strips
+    (render_sample_group). All three consume identical RNG streams.
     """
-    if _use_fused(scene, impl):
-        from . import pallas_pt
-        rad_sum, rays = pallas_pt.render_sum_fused(
-            scene, cam_params, width, height, film.subframe,
-            samples_per_launch=samples_per_launch, max_depth=max_depth,
-            y0=y0, full_width=full_width, full_height=full_height,
-            interpret=(impl == "fused_interpret"))
-        return _merge_launch(film, rad_sum, samples_per_launch), rays
-
-    use_spl = (impl == "spl"
-               or (impl == "auto" and scene.has_clusters
-                   and samples_per_launch >= 8 and _spl_major_default()))
-    if use_spl:
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    trace_impl = "xla" if impl == "xla" else "auto"
+    if impl == "spl":
         # Sample-major launches: trace all spl samples of a row-strip as
         # one pixel-grouped wavefront (render_sample_group), strip by
-        # strip so the live wavefront stays ~_SPL_TILE_RAYS. Replaces the
-        # per-sample sequential loop below for cluster scenes — same RNG
-        # streams, same estimator, ~2x less traversal work per ray.
+        # strip so the live wavefront stays ~_SPL_TILE_RAYS. Same RNG
+        # streams and estimator as the per-sample loop below.
         rows = min(height, max(1, _SPL_TILE_RAYS
                                // max(width * samples_per_launch, 1)))
         n_strips = -(-height // rows)
@@ -892,7 +704,7 @@ def render_accumulate(scene: DeviceScene, cam_params, film, width: int,
                 full_width=full_width if full_width is not None else width,
                 full_height=(full_height if full_height is not None
                              else height),
-                group_walk=group_walk)
+                impl=trace_impl)
             return (jax.lax.dynamic_update_slice(rad, r, (i * rows, 0, 0)),
                     cnt + c)
 
@@ -909,15 +721,12 @@ def render_accumulate(scene: DeviceScene, cam_params, film, width: int,
             scene, cam_params, width, height, film.subframe + i,
             max_depth=max_depth, chunk_size=chunk_size, y0=y0,
             full_width=full_width, full_height=full_height,
-            group_walk=group_walk)
+            impl=trace_impl)
         return rad_sum + radiance, count + rays_traced
 
     rad_sum, count = jax.lax.fori_loop(
         0, samples_per_launch,
         body, (jnp.zeros_like(film.accum), jnp.zeros((), jnp.float32)))
-    # Identical Film math to the fused path above: ONE per-launch
-    # variance-tracker estimate, so checkpoints resumed across
-    # impl="xla"/fused record compatible statistics.
     return _merge_launch(film, rad_sum, samples_per_launch), count
 
 

@@ -4,8 +4,8 @@ The reference's device exceptions (`optix_device.h:1263-1432`) give each
 launch a structured error channel: exception programs receive codes like
 `OPTIX_EXCEPTION_CODE_INVALID_RAY` (non-finite ray origin/direction) next
 to user-thrown codes, instead of silently corrupting the image. Under jit
-a TPU launch cannot branch to an exception program, so the TPU-native
-equivalent is an *error pytree*: per-stage counters accumulated alongside
+a launch cannot branch to an exception program, so the equivalent here
+is an *error pytree*: per-stage counters accumulated alongside
 the launch and surfaced through the context log callback when validation
 mode is on (`optixDeviceContextCreate` validation ALL,
 `optixPathTracer.cpp:566-569`).

@@ -12,34 +12,28 @@ from typing import Optional
 import jax
 
 from ..accel import bruteforce as bf
-from ..accel import clusters as cluster_mod
 from ..accel import primitives as prim_mod
 from ..accel import traverse as trav
-from ..accel.bruteforce import _TPU_PLATFORMS
-from ..accel.pallas_bf import MAX_SMEM_TRIS
 from ..core.rays import Hits, Rays
 from ..scene.device_scene import DeviceScene
 
 
-def _use_clusters(scene: DeviceScene) -> bool:
-    # Large-mesh hot path: the cluster-culled Pallas kernels (TPU only).
-    return (scene.has_clusters
-            and jax.default_backend() in _TPU_PLATFORMS)
+def traversal(scene: DeviceScene, impl: str = "auto",
+              platform: Optional[str] = None) -> str:
+    """The one place that decides how a scene's triangles are traversed.
 
-
-def _use_qwalk() -> bool:
-    """Opt-in cluster-major queue traversal for scattered/mixed-liveness
-    wavefronts (accel/qwalk.py) — flat octet-granularity work lists
-    instead of the lock-step gated walk. A/B via ORT_QWALK=1 until the
-    TPU numbers pick a default (tools/profile_qwalk.py)."""
-    import os
-    return os.environ.get("ORT_QWALK", "0") == "1"
-
-
-def _use_bvh(scene: DeviceScene) -> bool:
-    # Brute force wins while the whole mesh fits the fused kernel's SMEM
-    # budget; beyond that the threaded LBVH takes over (when built).
-    return scene.has_bvh and scene.geom.num_triangles > MAX_SMEM_TRIS
+    Returns "instances" (the IAS loop of accel/tlas.py), "bvh" (the
+    threaded BVH of accel/traverse.py, for meshes past the brute-force
+    limit) or a brute-force implementation from `bf.choose_impl`:
+    "pallas" (the fused GPU kernel), "xla" or "pallas_interpret".
+    `impl` forces the brute-force implementation ("xla" = the plain XLA
+    reference everywhere); `platform` defaults to JAX's default backend.
+    """
+    if scene.has_instances:
+        return "instances"
+    if scene.has_bvh and scene.num_triangles > bf.BRUTE_FORCE_MAX_TRIS:
+        return "bvh"
+    return bf.choose_impl(scene.num_triangles, impl, platform)
 
 
 def _flat_call(fn, rays: Rays):
@@ -75,52 +69,32 @@ def _merge_motion_closest(scene: DeviceScene, hits: Hits, rays: Rays,
         hits, mh, prim_offset=scene.num_triangles + scene.prims.num)
 
 
+def _motion_any(scene: DeviceScene, rays: Rays, times):
+    import jax.numpy as jnp
+    from ..accel import motion as motion_mod
+
+    tt = (times if times is not None
+          else jnp.zeros(rays.tmin.shape, jnp.float32))
+    return motion_mod.intersect_motion_triangles(scene.motion_geom, rays,
+                                                 tt).valid
+
+
 def scene_closest(scene: DeviceScene, rays: Rays,
                   chunk_size: Optional[int] = None, times=None,
-                  coherent: bool = True, exact: bool = False,
-                  group_walk=None) -> Hits:
-    """coherent=False marks scattered rays (bounce/shadow wavefronts): the
-    cluster path then pre-sorts them into spatially coherent blocks — the
-    wavefront-style `optixReorder` SER role (`optix_device.h:184`).
-    Tile-ordered primaries keep coherent=True and skip the sort cost.
-    exact=True (for already-sorted scattered wavefronts — the engine's
-    per-bounce state sort) runs the per-ray exact block cull instead of
-    the conservative interval cull. group_walk overrides the walk's
-    32-ray group gating (None = ORT_GROUP_WALK env default): sample-major
-    wavefronts force it ON — their groups share a pixel, so the gate's
-    crossing bits are tight (measured +6% e2e); it is a wash on sorted
-    strangers."""
-    if scene.has_instances:
+                  impl: str = "auto") -> Hits:
+    """Closest hit over the scene's triangles, custom prims and motion
+    triangles. `impl` forces the brute-force implementation (see
+    `traversal`)."""
+    how = traversal(scene, impl)
+    if how == "instances":
         from ..accel import tlas
-        mc = (scene.instance_clusters or None) if (
-            jax.default_backend() in _TPU_PLATFORMS) else None
         hits = _flat_call(
             lambda r: tlas.intersect_instances(
                 scene.geom, scene.instances, r, tri_mat=scene.tri_mat,
-                chunk_size=chunk_size, mesh_clusters=mc), rays)
-    elif _use_clusters(scene):
-        if (exact or not coherent) and _use_qwalk():
-            # Scattered/mixed wavefront via the queue: the flat work list
-            # is sort-independent (cluster-major exact crossings), so no
-            # pre-sort is required either.
-            from ..accel import qwalk as qwalk_mod
-            hits = _flat_call(
-                lambda r: qwalk_mod.closest_hit(scene.clusters, r), rays)
-        elif coherent:
-            hits = _flat_call(
-                lambda r: cluster_mod.closest_hit(scene.clusters, r,
-                                                  exact=exact,
-                                                  group_walk=group_walk),
-                rays)
-        else:
-            hits = _flat_call(
-                lambda r: cluster_mod.closest_hit_sorted(
-                    scene.clusters, r, group_walk=group_walk),
-                rays)
-    elif _use_bvh(scene):
-        # Chunked: one unbounded while_loop over a multi-million-ray
-        # wavefront runs past the device watchdog (the slowest ray stalls
-        # every lane); fixed-size chunks bound each kernel invocation.
+                chunk_size=chunk_size, impl=impl), rays)
+    elif how == "bvh":
+        # Chunked: fixed-size chunks bound the lock-step while_loop's live
+        # state and the slowest ray's hold on the rest of the wavefront.
         hits = _flat_call(
             lambda r: bf._chunked(
                 lambda c: trav.traverse(scene.bvh, scene.geom,
@@ -128,7 +102,7 @@ def scene_closest(scene: DeviceScene, rays: Rays,
                 r, chunk_size), rays)
     else:
         hits = bf.intersect_closest(scene.geom, rays, tri_mat=scene.tri_mat,
-                                    chunk_size=chunk_size)
+                                    chunk_size=chunk_size, impl=how)
     if scene.prims.num:
         ph = prim_mod.intersect_prims_closest(scene.prims, rays)
         hits = prim_mod.merge_hits(hits, ph,
@@ -140,63 +114,36 @@ def scene_closest(scene: DeviceScene, rays: Rays,
 
 def scene_any(scene: DeviceScene, rays: Rays,
               chunk_size: Optional[int] = None, times=None,
-              coherent: bool = True, group_walk=None):
+              impl: str = "auto"):
+    """Occlusion (terminate-on-first-hit) over the whole scene → bool."""
     if scene.has_cutouts:
         # has_omm is only set at build time when the scene qualifies (no
-        # instances; prim/motion materials cutout-free — device_scene.py);
-        # the path itself handles clusters, prims and motion.
+        # instances; prim/motion materials cutout-free — device_scene.py).
         if scene.has_omm:
             return _scene_any_alpha_omm(scene, rays, chunk_size,
-                                        times=times, coherent=coherent,
-                                        group_walk=group_walk)
-        return _scene_any_alpha(scene, rays, chunk_size)
-    if scene.has_instances:
+                                        times=times, impl=impl)
+        return _scene_any_alpha(scene, rays, chunk_size, impl=impl)
+    how = traversal(scene, impl)
+    if how == "instances":
         from ..accel import tlas
-        mc = (scene.instance_clusters or None) if (
-            jax.default_backend() in _TPU_PLATFORMS) else None
         occ = _flat_call(
             lambda r: tlas.intersect_instances_any(
                 scene.geom, scene.instances, r, chunk_size=chunk_size,
-                mesh_clusters=mc),
+                impl=impl),
             rays)
-    elif _use_clusters(scene):
-        if _use_qwalk():
-            # NEE shadow wavefronts are always mixed-liveness — the queue
-            # only enqueues live crossings, so it applies coherent or not.
-            from ..accel import qwalk as qwalk_mod
-            occ = _flat_call(
-                lambda r: qwalk_mod.any_hit(scene.clusters, r), rays)
-        elif coherent:
-            # NEE shadow wavefronts are mixed-liveness even when
-            # tile-coherent; the exact cull's per-ray union lists ~4x
-            # fewer clusters than the interval cull there (measured on
-            # the 25k-knot shadow wavefront), so any-hit always takes it.
-            occ = _flat_call(
-                lambda r: cluster_mod.any_hit(scene.clusters, r, exact=True,
-                                              group_walk=group_walk), rays)
-        else:
-            occ = _flat_call(
-                lambda r: cluster_mod.any_hit_sorted(
-                    scene.clusters, r, group_walk=group_walk),
-                rays)
-    elif _use_bvh(scene):
+    elif how == "bvh":
         occ = _flat_call(
             lambda r: bf._chunked(
                 lambda c: trav.traverse(scene.bvh, scene.geom, None, c,
                                         any_hit=True),
                 r, chunk_size), rays)
     else:
-        occ = bf.intersect_any(scene.geom, rays, chunk_size=chunk_size)
+        occ = bf.intersect_any(scene.geom, rays, chunk_size=chunk_size,
+                               impl=how)
     if scene.prims.num:
         occ = occ | prim_mod.intersect_prims_any(scene.prims, rays)
     if scene.has_motion:
-        import jax.numpy as jnp
-        from ..accel import motion as motion_mod
-        tt = (times if times is not None
-              else jnp.zeros(rays.tmin.shape, jnp.float32))
-        mh = motion_mod.intersect_motion_triangles(scene.motion_geom, rays,
-                                                   tt)
-        occ = occ | mh.valid
+        occ = occ | _motion_any(scene, rays, times)
     return occ
 
 
@@ -248,7 +195,7 @@ def cutout_hole_mask(scene: DeviceScene, hits: Hits):
 
 def _scene_any_alpha_omm(scene: DeviceScene, rays: Rays, chunk_size,
                          max_steps: int = 64, times=None,
-                         coherent: bool = True, group_walk=None):
+                         impl: str = "auto"):
     """Occlusion with opacity micromaps wired into the anyhit path.
 
     The traversal-skips-anyhit behavior of `optixOpacityMicromap.cpp:29-30`
@@ -257,8 +204,8 @@ def _scene_any_alpha_omm(scene: DeviceScene, rays: Rays, chunk_size,
     1. Triangles CERTAIN to occlude (summary OPAQUE + all non-cutout
        geometry) answer with one first-hit-exit any-hit query — no alpha
        loop, exactly as the driver never calls the anyhit program for
-       opaque micro-triangles. Large solid splits run the Pallas cluster
-       any-hit (scene.omm_solid_clusters); custom prims and motion
+       opaque micro-triangles. Solid splits past the brute-force limit
+       traverse their own BVH (scene.omm_solid_bvh); custom prims and motion
        triangles (cutout-free by the build-time gate) fold in here too.
     2. Summary-TRANSPARENT triangles are in no occlusion set at all —
        they can never block light, so rays pass them for free.
@@ -272,62 +219,42 @@ def _scene_any_alpha_omm(scene: DeviceScene, rays: Rays, chunk_size,
     """
     import jax
     import jax.numpy as jnp
-    from ..accel import bruteforce as bf
     from ..accel.geometry import shading_frame
     from ..accel.micromap import OPAQUE, TRANSPARENT, micro_index
     from ..shade import materials as mats
 
-    solid_cs = scene.omm_solid_clusters
-    if (solid_cs.num_clusters
-            and jax.default_backend() in _TPU_PLATFORMS):
-        if coherent:
-            occ0 = _flat_call(
-                lambda r: cluster_mod.any_hit(solid_cs, r, exact=True,
-                                              group_walk=group_walk), rays)
-        else:
-            occ0 = _flat_call(
-                lambda r: cluster_mod.any_hit_sorted(
-                    solid_cs, r, group_walk=group_walk), rays)
+    if scene.omm_solid_bvh.num_nodes:
+        occ0 = _flat_call(
+            lambda r: bf._chunked(
+                lambda c: trav.traverse(scene.omm_solid_bvh,
+                                        scene.omm_solid_geom, None, c,
+                                        any_hit=True),
+                r, chunk_size), rays)
     elif scene.omm_solid_geom.num_triangles:
         occ0 = bf.intersect_any(scene.omm_solid_geom, rays,
-                                chunk_size=chunk_size)
+                                chunk_size=chunk_size, impl=impl)
     else:
         occ0 = jnp.zeros(rays.tmin.shape, bool)
     if scene.prims.num:
         occ0 = occ0 | prim_mod.intersect_prims_any(scene.prims, rays)
     if scene.has_motion:
-        from ..accel import motion as motion_mod
-        tt = (times if times is not None
-              else jnp.zeros(rays.tmin.shape, jnp.float32))
-        mh = motion_mod.intersect_motion_triangles(scene.motion_geom, rays,
-                                                   tt)
-        occ0 = occ0 | mh.valid
+        occ0 = occ0 | _motion_any(scene, rays, times)
     if not scene.omm_unknown_geom.num_triangles:
         return occ0
 
     geom = scene.omm_unknown_geom
-    # Per-lane random gathers are TPU-hostile; every per-hit table fetch
-    # below is a one-hot MXU contraction instead (the same trick as
-    # materials._gather_onehot). The [T] per-unknown-triangle rows are
-    # pre-gathered once per call (T rows, not N).
-    n_unknown = geom.num_triangles
-    micro_f = scene.omm_micro[scene.omm_unknown_ids
-                              ].astype(jnp.float32)        # [T, 4^level]
+    # Per-unknown-triangle rows, gathered once per call (T rows, not N).
+    micro = scene.omm_micro[scene.omm_unknown_ids].astype(jnp.int32)
     mat_unknown = scene.tri_mat[scene.omm_unknown_ids]     # [T]
 
     def body(state):
         k, cur, occluded, done = state
-        hits = bf.intersect_closest(geom, cur, chunk_size=chunk_size)
+        hits = bf.intersect_closest(geom, cur, chunk_size=chunk_size,
+                                    impl=impl)
         pid = jnp.maximum(hits.prim_id, 0)
-        oh = jax.nn.one_hot(pid, n_unknown, dtype=jnp.float32)  # [N, T]
         mid = micro_index(hits.uv[..., 0], hits.uv[..., 1], scene.omm_level)
-        rows = oh @ micro_f                                     # [N, 64]
-        st = jnp.round(jnp.sum(
-            rows * jax.nn.one_hot(mid, micro_f.shape[1],
-                                  dtype=jnp.float32), -1)).astype(jnp.int32)
-        mat_id = jnp.round(oh @ mat_unknown.astype(jnp.float32)
-                           ).astype(jnp.int32)
-        m = mats.gather(scene.materials, mat_id)
+        st = micro[pid, mid]
+        m = mats.gather(scene.materials, mat_unknown[pid])
         uv = shading_frame(geom, pid, hits.uv)["uv"]
         hole = jnp.where(st == TRANSPARENT, True,
                          jnp.where(st == OPAQUE, False,
@@ -353,7 +280,7 @@ def _scene_any_alpha_omm(scene: DeviceScene, rays: Rays, chunk_size,
 
 
 def _scene_any_alpha(scene: DeviceScene, rays: Rays, chunk_size,
-                     max_steps: int = 64):
+                     max_steps: int = 64, impl: str = "auto"):
     """Occlusion with alpha-mask pass-through: re-enter past masked
     surfaces until every ray is resolved (the reference's anyhit program
     re-enters unboundedly, `optixCutouts.cu:295,337`).
@@ -368,7 +295,7 @@ def _scene_any_alpha(scene: DeviceScene, rays: Rays, chunk_size,
 
     def body(state):
         k, cur, occluded, done = state
-        hits = scene_closest(scene, cur, chunk_size=chunk_size)
+        hits = scene_closest(scene, cur, chunk_size=chunk_size, impl=impl)
         hole = cutout_hole_mask(scene, hits)
         solid = hits.valid & ~hole
         occluded = occluded | (solid & ~done)

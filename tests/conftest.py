@@ -1,8 +1,8 @@
 """Test harness config: force an 8-virtual-device CPU mesh.
 
-Multi-chip TPU hardware is not available in CI, so every test runs on the CPU
+Multi-card hardware is not available in CI, so every test runs on the CPU
 backend with 8 virtual devices (`--xla_force_host_platform_device_count=8`),
-exercising the same jit/shard_map code paths the TPU mesh uses. This must run
+exercising the same jit/shard_map code paths a multi-GPU mesh uses. This must run
 before any JAX backend initialization — conftest import time is early enough
 because the framework initializes backends lazily.
 """
@@ -15,21 +15,32 @@ if "host_platform_device_count" not in flags:
 import jax  # noqa: E402
 import pytest  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
+# The CPU backend unless JAX_PLATFORMS says otherwise: the card's own tests
+# run as `JAX_PLATFORMS=cuda python -m pytest -m gpu tests/` on the card.
+jax.config.update("jax_platforms", os.environ.get("JAX_PLATFORMS") or "cpu")
 
 # Persistent compile cache for the suite: the default run's wall time is
 # dominated by XLA CPU compiles, and they repeat identically across runs
 # (and across the per-module clear_caches below, which only drops the
-# in-memory executables). A warm cache cuts compile-heavy modules ~4.6x
-# (measured on test_lbvh: 300 s -> 65 s). ORT_TEST_CACHE=0 disables;
-# any other value overrides the location.
-_cache = os.environ.get("ORT_TEST_CACHE")
-if _cache != "0":
-    if not _cache:
-        _cache = os.path.expanduser("~/.cache/ort_pytest_xla")
-    jax.config.update("jax_compilation_cache_dir", _cache)
+# in-memory executables). The cache lives where every entry point keeps it
+# (core/compile_cache.py: JAX_COMPILATION_CACHE_DIR, else .jax_cache/ in
+# the checkout). ORT_TEST_CACHE=0 disables it.
+if os.environ.get("ORT_TEST_CACHE") != "0":
+    from optix_raytracer_tpu.core.compile_cache import enable_compile_cache
+    enable_compile_cache()
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     jax.config.update("jax_persistent_cache_enable_xla_caches", "all")
+
+
+@pytest.fixture
+def gpu():
+    """Skips the test unless JAX's default backend is a GPU. Tests that
+    need the card take this fixture; the decision is made here, when the
+    test runs, never while a module is imported."""
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs an NVIDIA GPU (run: python -m pytest -m gpu "
+                    "on a machine with the card)")
+    return jax.devices()[0]
 
 
 @pytest.fixture(autouse=True, scope="module")

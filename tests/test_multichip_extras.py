@@ -64,7 +64,7 @@ class TestShardedTextures:
 
 class TestPlacementPolicy:
     """optixNVLink placement policy (`optixNVLink.cpp:1524-1569,1698-1712`):
-    one texture replica per ICI island, spread over its members, chosen by
+    one texture replica per island, spread over its members, chosen by
     a size heuristic; measured per-chip HBM saving."""
 
     def _mesh(self):
@@ -165,7 +165,7 @@ class TestDistributedBringup:
         for v in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
                   "JAX_PROCESS_ID", "SLURM_NTASKS", "SLURM_PROCID",
                   "OMPI_COMM_WORLD_SIZE", "OMPI_COMM_WORLD_RANK",
-                  "MEGASCALE_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS"):
+                  "COORDINATOR_ADDRESS"):
             monkeypatch.delenv(v, raising=False)
         assert dist.detect_config() == (None, 1, 0)
 
@@ -194,7 +194,7 @@ class TestDistributedBringup:
         for v in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
                   "JAX_PROCESS_ID", "SLURM_NTASKS", "SLURM_PROCID",
                   "OMPI_COMM_WORLD_SIZE", "OMPI_COMM_WORLD_RANK",
-                  "MEGASCALE_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS"):
+                  "COORDINATOR_ADDRESS"):
             monkeypatch.delenv(v, raising=False)
         dist.shutdown()
         info = dist.initialize()

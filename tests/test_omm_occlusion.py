@@ -225,29 +225,30 @@ def _cutout_grid_scene(nx=40, ny=30, prim=False, motion=False,
 
 
 class TestOmmGeneralized:
-    """Round-5 generalization: OMM occlusion on cluster-tier scenes and
-    scenes with custom prims / motion (the reference applies micromaps to
+    """OMM occlusion on meshes past the brute-force limit and on scenes
+    with custom prims / motion (the reference applies micromaps to
     every anyhit lookup on any GAS, `optixOpacityMicromap.cpp:29-30`)."""
 
-    def test_cluster_scene_builds_solid_clusters(self):
+    def test_large_scene_builds_solid_bvh(self):
         s = _cutout_grid_scene()
         assert s.has_omm
         # 2400 grid tris, half opaque (checker) + 2 floor tris
         assert s.omm_solid_geom.num_triangles > 512
-        assert s.omm_solid_clusters.num_clusters > 0
+        assert s.omm_solid_bvh.num_nodes > 0
         # every grid triangle is certain: one checker cell per quad
         assert s.omm_unknown_geom.num_triangles == 0
         assert s.omm_all_certain
 
-    def test_solid_cluster_anyhit_matches_bruteforce(self):
+    def test_solid_bvh_anyhit_matches_bruteforce(self):
         from optix_raytracer_tpu.accel import bruteforce as bf
-        from optix_raytracer_tpu.accel import clusters as cl
+        from optix_raytracer_tpu.wavefront.intersect import scene_any
         s = _cutout_grid_scene()
         rays = _shadow_rays(1024, seed=3)
-        occ_cl = np.asarray(cl.any_hit(s.omm_solid_clusters, rays,
-                                       interpret=True, exact=True))
+        # all-certain scene: scene_any is exactly the solid-split query
+        occ_bvh = np.asarray(scene_any(s, rays))
         occ_bf = np.asarray(bf.intersect_any(s.omm_solid_geom, rays))
-        np.testing.assert_array_equal(occ_cl, occ_bf)
+        assert occ_bf.any() and not occ_bf.all()
+        np.testing.assert_array_equal(occ_bvh, occ_bf)
 
     def test_scene_any_parity_with_prims_and_motion(self):
         s = _cutout_grid_scene(prim=True, motion=True)

@@ -101,43 +101,6 @@ class TestPhysicalSanity:
         assert not np.array_equal(first8, second)
 
 
-class TestWavefrontSort:
-    """The per-bounce whole-state coherence sort (engine._sort_wavefront)
-    must be a pure reordering: tracing a cluster scene (sorted-bounce
-    branch) and the same scene with clusters stripped (plain fori_loop
-    branch) must produce identical radiance and identical traced-ray
-    counts — both run the same bruteforce intersector on CPU, so any
-    difference is sort machinery corrupting path state."""
-
-    def test_sorted_trace_matches_unsorted(self):
-        from optix_raytracer_tpu.scene.builtins import knot_camera, trefoil_mesh
-        from optix_raytracer_tpu.scene.device_scene import make_device_scene
-        from optix_raytracer_tpu.shade.lights import ParallelogramLight
-
-        w, h = 32, 24
-        verts, idx, normals = trefoil_mesh(40, 12)
-        light = ParallelogramLight.make((-2.0, 6.0, -2.0), (4.0, 0, 0),
-                                        (0, 0, 4.0), (12.0, 11.0, 10.0))
-        scene = make_device_scene(
-            verts, idx, np.zeros(len(idx), np.int32),
-            [{"kind": 0, "base_color": (0.7, 0.6, 0.5)}],
-            normals=normals, area_light=light)
-        assert scene.has_clusters
-        nocluster = scene.replace(clusters=type(scene.clusters).empty())
-        cam = knot_camera(w, h).params()
-        film = film_mod.Film.create(h, w)
-        f1, r1 = render_accumulate(scene, cam, film, w, h,
-                                   samples_per_launch=2, max_depth=3,
-                                   chunk_size=None)
-        f2, r2 = render_accumulate(nocluster, cam, film, w, h,
-                                   samples_per_launch=2, max_depth=3,
-                                   chunk_size=None)
-        a, b = np.asarray(f1.accum), np.asarray(f2.accum)
-        assert a.max() > 0.0  # the light actually contributes
-        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
-        assert float(r1) == float(r2)
-
-
 class TestSampleMajor:
     """Sample-major wavefronts (render_sample_group / impl='spl') must be
     a pure re-bucketing of the sequential per-sample loop: identical RNG
@@ -163,7 +126,6 @@ class TestSampleMajor:
         from optix_raytracer_tpu.wavefront import engine
 
         scene = self._scene()
-        assert scene.has_clusters
         w, h = 32, 21            # 21 rows: strips of 8 -> 3 strips, 3 pad rows
         monkeypatch.setattr(engine, "_SPL_TILE_RAYS", 32 * 8 * 8)
         cam = knot_camera(w, h).params()
@@ -182,17 +144,12 @@ class TestSampleMajor:
         assert float(r_seq) == float(r_spl)
         assert int(f_seq.subframe) == int(f_spl.subframe)
 
-    def test_auto_dispatch_uses_spl_major(self, monkeypatch):
-        """impl='auto' + spl>=8 on a cluster scene takes the sample-major
-        path (and ORT_SPL_MAJOR=0 reverts to the sequential loop)."""
-        from optix_raytracer_tpu.wavefront import engine
-
-        monkeypatch.setenv("ORT_SPL_MAJOR", "1")
-        assert engine._spl_major_default()
-        monkeypatch.setenv("ORT_SPL_MAJOR", "0")
-        assert not engine._spl_major_default()
-        monkeypatch.delenv("ORT_SPL_MAJOR", raising=False)
-        assert engine._spl_major_default()  # opt-out default
+    def test_unknown_impl_raises(self):
+        from optix_raytracer_tpu.scene.builtins import knot_camera
+        scene = self._scene()
+        with pytest.raises(ValueError):
+            render_accumulate(scene, knot_camera(8, 8).params(),
+                              film_mod.Film.create(8, 8), 8, 8, impl="fused")
 
     def test_render_sample_group_sums_samples(self):
         """render_sample_group's radiance SUM equals the sum of the
@@ -221,12 +178,10 @@ class TestSampleMajor:
 class TestMeshAgainstOracle:
     """End-to-end mesh-scene expectation gate (round-2 verdict weak #5:
     the oracle must exercise the large-mesh path, not just Cornell). A
-    960-triangle flat-shaded knot takes the engine's cluster-class branch
-    (per-bounce coherence sort + pixel-id unsort; the traversal itself is
-    the LBVH on CPU, the cluster kernels on TPU — both bit-match the same
-    numpy Möller–Trumbore oracle in tests/test_clusters.py), so radiance
-    agreement here validates the whole sorted-bounce estimator on a real
-    mesh against an independent integrator."""
+    960-triangle flat-shaded knot is past the brute-force limit, so
+    make_device_scene builds its BVH and every bounce and shadow query
+    traverses it; radiance agreement validates the BVH path on a real mesh
+    against an independent integrator."""
 
     @pytest.mark.slow  # heavy parity sweep (default run keeps a cheap cousin)
     def test_knot_matches_numpy_oracle(self):
@@ -243,7 +198,7 @@ class TestMeshAgainstOracle:
             verts, idx, np.zeros(len(idx), np.int32),
             [{"kind": 0, "base_color": (0.7, 0.6, 0.5)}],
             area_light=light)
-        assert scene.has_clusters   # really the sorted-bounce branch
+        assert scene.has_bvh        # really the BVH traversal
         img_jax = jax_render_cam(scene, knot_camera(w, h).params(),
                                  w, h, samples, depth)
         cam = {k: np.asarray(v)
@@ -255,3 +210,34 @@ class TestMeshAgainstOracle:
         lit = img_ora.mean() > 1e-4
         assert lit, "oracle scene must actually be lit"
         assert abs(img_jax.mean() - img_ora.mean()) / img_ora.mean() < 0.05
+
+    def test_knot_bvh_small_matches_numpy_oracle(self):
+        """The cheap cousin of the sweep above: the 960-triangle knot built
+        with make_device_scene's defaults (so it gets a BVH and no other
+        structure), rendered through render_accumulate at 16x12."""
+        from optix_raytracer_tpu.scene.builtins import knot_camera, trefoil_mesh
+        from optix_raytracer_tpu.scene.device_scene import make_device_scene
+        from optix_raytracer_tpu.shade.lights import ParallelogramLight
+        from optix_raytracer_tpu.wavefront.intersect import traversal
+
+        w, h = 16, 12
+        samples, depth = 64, 2
+        verts, idx, _ = trefoil_mesh(40, 12)
+        light = ParallelogramLight.make((-2.0, 6.0, -2.0), (4.0, 0, 0),
+                                        (0, 0, 4.0), (12.0, 11.0, 10.0))
+        scene = make_device_scene(
+            verts, idx, np.zeros(len(idx), np.int32),
+            [{"kind": 0, "base_color": (0.7, 0.6, 0.5)}],
+            area_light=light)
+        assert traversal(scene, platform="gpu") == "bvh"
+        img_jax = jax_render_cam(scene, knot_camera(w, h).params(),
+                                 w, h, samples, depth)
+        cam = {k: np.asarray(v)
+               for k, v in knot_camera(w, h).params().items()}
+        img_ora = render_oracle(scene_to_numpy(scene), cam, w, h,
+                                samples=samples, max_depth=depth, seed=7)
+        assert img_ora.mean() > 1e-4, "oracle scene must actually be lit"
+        assert np.isfinite(img_jax).all() and (img_jax >= 0).all()
+        # independent Monte-Carlo estimates at 64 spp: compare means
+        assert abs(img_jax.mean() - img_ora.mean()) / img_ora.mean() < 0.08
+        assert np.abs(img_jax - img_ora).mean() < 0.05

@@ -192,7 +192,7 @@ class TestBundles:
         mats_l = [{"kind": mat.DIFFUSE, "base_tex": 0, "normal_tex": 1,
                    "mr_tex": 2, "emissive_tex": 3}]
         tex, size, mips = pack_textures([base, nmap, mr, em])
-        bundles, bmip, mat_bundle, _bq, _qb, _meta = pack_bundles([base, nmap, mr, em],
+        bundles, bmip, mat_bundle, _bq, _qb = pack_bundles([base, nmap, mr, em],
                                                  mats_l)
         assert mat_bundle[0] == 0 and bundles.shape[-1] == 16
         n = 4096
@@ -224,7 +224,7 @@ class TestBundles:
         mats_l = [{"kind": mat.DIFFUSE, "base_tex": 0, "normal_tex": 1},
                   {"kind": mat.DIFFUSE},                 # untextured
                   {"kind": mat.DIFFUSE, "base_tex": 0, "normal_tex": 1}]
-        bundles, bmip, mat_bundle, _bq, _qb, _meta = pack_bundles([base, nmap], mats_l)
+        bundles, bmip, mat_bundle, _bq, _qb = pack_bundles([base, nmap], mats_l)
         assert mat_bundle[1] == -1
         assert mat_bundle[0] == mat_bundle[2] == 0     # dedup by tex tuple
         n = 256
@@ -246,7 +246,7 @@ class TestBundles:
         from optix_raytracer_tpu.shade.texture import sample_bundle
         rng = np.random.default_rng(5)
         img = rng.uniform(0, 1, (16, 16, 3)).astype(np.float32)
-        bundles, bmip, mb, _bq, _qb, _meta = pack_bundles([img], [{"base_tex": 0}])
+        bundles, bmip, mb, _bq, _qb = pack_bundles([img], [{"base_tex": 0}])
         uv_a = jnp.asarray([[0.9999999, 0.5]], jnp.float32)
         uv_b = jnp.asarray([[1.0000001 - 1.0, 0.5]], jnp.float32)
         a = sample_bundle(bundles, bmip, jnp.zeros((1,), jnp.int32), uv_a)
@@ -267,7 +267,7 @@ class TestQuadRows:
         base = rng.uniform(0, 1, (16, 24, 3)).astype(np.float32)
         nmap = rng.uniform(0, 1, (8, 8, 3)).astype(np.float32)
         mats_l = [{"base_tex": 0, "normal_tex": 1}]
-        bundles, bmip, mb, quads, qbase, _meta = pack_bundles([base, nmap], mats_l)
+        bundles, bmip, mb, quads, qbase = pack_bundles([base, nmap], mats_l)
         uv = jnp.asarray(rng.uniform(-2, 2, (500, 2)), jnp.float32)
         bid = jnp.zeros((500,), jnp.int32)
         scale = jnp.asarray(rng.uniform(0, 8, (500,)), jnp.float32)

@@ -8,7 +8,6 @@ update).
 """
 import numpy as np
 import jax.numpy as jnp
-import pytest
 
 from optix_raytracer_tpu.accel import tlas
 from optix_raytracer_tpu.accel import bruteforce as bf
@@ -246,81 +245,52 @@ class TestSmoothNormalsShading:
         assert np.quantile(rel, 0.9) < 0.1, np.quantile(rel, 0.9)
 
 
-class TestInstancedClusters:
-    """Large shared meshes under instancing traverse through the cluster
-    kernels (accel/tlas.py mesh_clusters) — exact agreement with the
-    per-instance brute-force path."""
+class TestInstancedTraversal:
+    """Instanced scenes traverse through the IAS loop with brute force per
+    instance; no BVH is built over the object-space concatenation."""
 
-    def _setup(self):
-        from optix_raytracer_tpu.accel import clusters as cl
+    def test_large_instanced_mesh_builds_no_bvh(self):
+        from optix_raytracer_tpu.scene.device_scene import make_device_scene
         from optix_raytracer_tpu.scene.builtins import trefoil_mesh
-        verts, idx, normals = trefoil_mesh(40, 16)   # 1280 tris > 512
-        geom = build_triangle_geometry(
-            np.concatenate([verts]), np.concatenate([idx]))
-        tri_mat = jnp.zeros((geom.num_triangles,), jnp.int32)
+        from optix_raytracer_tpu.wavefront.intersect import traversal
+        verts, idx, _ = trefoil_mesh(40, 16)          # 1280 tris > 512
+        table = tlas.make_instances([translate(0, 0, 0)],
+                                    prim_ranges=[(0, len(idx))])
+        scene = make_device_scene(verts, idx, np.zeros(len(idx), np.int32),
+                                  MATERIALS, instances=table)
+        assert not scene.has_bvh
+        assert traversal(scene, platform="gpu") == "instances"
+        assert traversal(scene, platform="cpu") == "instances"
+
+    def test_kernel_impl_matches_xla(self):
+        v, i = cube()
+        geom = build_triangle_geometry(v, i)
+        tri_mat = jnp.arange(geom.num_triangles, dtype=jnp.int32) % 3
         table = tlas.make_instances(
             [translate(-2.0, 0, 0), translate(2.0, 0.5, 0)
              @ scale_rot(0.7, 30.0)],
             sbt_offsets=np.asarray([0, 1], np.int32),
             prim_ranges=[(0, geom.num_triangles)] * 2)
-        cs = cl.build_clusters(geom, tri_mat)
-        return geom, tri_mat, table, {(0, geom.num_triangles): cs}
-
-    @pytest.mark.slow  # heavy parity sweep (default run keeps a cheap cousin)
-    def test_cluster_ias_matches_bruteforce(self, monkeypatch):
-        import functools
-        from optix_raytracer_tpu.accel import clusters as cl
-        geom, tri_mat, table, mc = self._setup()
         rng = np.random.default_rng(9)
-        o = rng.uniform(-5, 5, (600, 3)).astype(np.float32)
-        o[:, 2] -= 6.0
-        d = rng.normal(size=(600, 3)).astype(np.float32)
+        o = np.tile(np.float32([0.0, 0.0, -8.0]), (300, 1))
+        target = rng.uniform([-3.5, -1.5, -1.0], [3.5, 2.0, 1.0], (300, 3))
+        d = (target - o).astype(np.float32)
         d /= np.linalg.norm(d, axis=1, keepdims=True)
         rays = Rays.make(jnp.asarray(o), jnp.asarray(d), tmin=1e-3,
                          tmax=100.0)
         ref = tlas.intersect_instances(geom, table, rays, tri_mat=tri_mat,
-                                       chunk_size=None)
-        ref_occ = tlas.intersect_instances_any(geom, table, rays,
-                                               chunk_size=None)
-        monkeypatch.setattr(cl, "closest_hit",
-                            functools.partial(cl.closest_hit.__wrapped__,
-                                              interpret=True))
-        monkeypatch.setattr(cl, "any_hit",
-                            functools.partial(cl.any_hit.__wrapped__,
-                                              interpret=True))
+                                       impl="xla")
         out = tlas.intersect_instances(geom, table, rays, tri_mat=tri_mat,
-                                       chunk_size=None, mesh_clusters=mc)
-        out_occ = tlas.intersect_instances_any(geom, table, rays,
-                                               chunk_size=None,
-                                               mesh_clusters=mc)
-        np.testing.assert_array_equal(np.asarray(ref.prim_id),
-                                      np.asarray(out.prim_id))
-        np.testing.assert_array_equal(np.asarray(ref.inst_id),
-                                      np.asarray(out.inst_id))
-        np.testing.assert_array_equal(np.asarray(ref.mat_id),
-                                      np.asarray(out.mat_id))
+                                       impl="pallas_interpret")
+        for k in ("prim_id", "inst_id", "mat_id"):
+            np.testing.assert_array_equal(np.asarray(getattr(out, k)),
+                                          np.asarray(getattr(ref, k)))
         hit = np.asarray(ref.valid)
         assert hit.any()
         np.testing.assert_allclose(np.asarray(out.t)[hit],
                                    np.asarray(ref.t)[hit], rtol=1e-5)
-        np.testing.assert_allclose(np.asarray(out.normal)[hit],
-                                   np.asarray(ref.normal)[hit], atol=1e-4)
-        np.testing.assert_array_equal(np.asarray(ref_occ),
-                                      np.asarray(out_occ))
-
-    def test_scene_builds_instance_clusters(self):
-        from optix_raytracer_tpu.scene.device_scene import make_device_scene
-        from optix_raytracer_tpu.scene.builtins import trefoil_mesh
-        verts, idx, _ = trefoil_mesh(40, 16)
-        table = tlas.make_instances([translate(0, 0, 0)],
-                                    prim_ranges=[(0, len(idx))])
-        scene = make_device_scene(verts, idx, np.zeros(len(idx), np.int32),
-                                  MATERIALS, instances=table)
-        assert (0, len(idx)) in scene.instance_clusters
-        # small meshes stay brute-force
-        v2, i2 = cube()
-        t2 = tlas.make_instances([translate(0, 0, 0)],
-                                 prim_ranges=[(0, len(i2))])
-        s2 = make_device_scene(v2, i2, np.zeros(len(i2), np.int32),
-                               MATERIALS, instances=t2)
-        assert not s2.instance_clusters
+        np.testing.assert_array_equal(
+            np.asarray(tlas.intersect_instances_any(
+                geom, table, rays, impl="pallas_interpret")),
+            np.asarray(tlas.intersect_instances_any(geom, table, rays,
+                                                    impl="xla")))

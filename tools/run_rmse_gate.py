@@ -22,18 +22,18 @@ the accumulation mean (`optixPathTracer.cu:312-318`).
 Writes RMSE.json at the repo root; bench.py folds `cornell_rmse_vs_oracle`
 (the debiased number) into its extras. RMSE.json keeps the headline point's
 fields at top level (back-compat with bench.py) and records every gate
-point ever run under "points" keyed by label, so the depth-4 engine point,
-the fused-Pallas-kernel point, and the 512^2 point coexist.
+point ever run under "points" keyed by label, so the depth-4 engine point
+and the 512^2 point coexist.
 
 The oracle renders are the cost driver (hours of single-core numpy), so
 they are cached on disk keyed by (dim, spp, depth, seed) under
-$ORT_ORACLE_CACHE (default /tmp/ort_oracle_cache): the engine-XLA and the
-fused-kernel gate points at the same config share one oracle pair, and
+$ORT_ORACLE_CACHE (default /tmp/ort_oracle_cache): gate points of different
+impls at the same config share one oracle pair, and
 `--oracle-only` precomputes the pair in a background process.
 
 Usage: python tools/run_rmse_gate.py [--dim 256] [--spp 4096]
        [--oracle-spp 2048] (per split half; oracle cost dominates)
-       [--max-depth 4] [--impl auto|xla|fused|fused_interpret]
+       [--max-depth 4] [--impl auto|xla|spl]
        [--label NAME] [--oracle-only] [--no-headline]
 """
 from __future__ import annotations
@@ -79,7 +79,7 @@ def engine_render(scene, cam, w, h, spp, subframe0=0, spl=64,
 
 def _oracle_cached(sc_np, cam_np, w, h, spp, max_depth, seed):
     """Disk-cached oracle render (hours of single-core numpy per point —
-    the engine-XLA and fused-kernel gate points share one oracle pair)."""
+    gate points of different impls share one oracle pair)."""
     import numpy as np
     from oracle_pt import render_oracle
 
@@ -165,10 +165,8 @@ def main():
     p.add_argument("--oracle-spp", type=int, default=2048)
     p.add_argument("--max-depth", type=int, default=4)
     p.add_argument("--spl", type=int, default=64,
-                   help="samples per launch (16 = the fused kernel's "
-                        "well-compiled shape)")
-    p.add_argument("--impl", default="auto",
-                   choices=["auto", "xla", "fused", "fused_interpret"])
+                   help="samples per launch")
+    p.add_argument("--impl", default="auto", choices=["auto", "xla", "spl"])
     p.add_argument("--label", default=None,
                    help="key under RMSE.json points (default: derived)")
     p.add_argument("--oracle-only", action="store_true",
@@ -183,14 +181,13 @@ def main():
         print("# oracle pair cached")
         return
     import jax
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-    except Exception:
-        pass
+    from optix_raytracer_tpu.core.compile_cache import enable_compile_cache
+    enable_compile_cache()
     r = gate(args.dim, args.spp, args.oracle_spp, args.max_depth,
              impl=args.impl, spl=args.spl)
-    r["device"] = str(jax.devices()[0])
+    dev = jax.devices()[0]
+    r["device"] = {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())}
     print(json.dumps(r))
     label = args.label or f"{args.impl}_depth{args.max_depth}_{args.dim}"
     prev = {}

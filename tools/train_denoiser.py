@@ -3,7 +3,7 @@
 The reference ships pretrained denoiser weights inside the driver
 (`optixDenoiserCreate`, model kinds at `optix_types.h:1609-1635`). We
 cannot ship NVIDIA's weights, so we train our own: random Cornell-variant
-scenes rendered by the fused path tracer — low-spp noisy input + AOV guide
+scenes rendered by the path tracer — low-spp noisy input + AOV guide
 layers vs high-spp target — through the KPCNN (denoise/kpcnn.py), saved to
 optix_raytracer_tpu/denoise/weights/kpcnn.npz.
 
